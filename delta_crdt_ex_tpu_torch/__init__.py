@@ -1,0 +1,44 @@
+"""delta_crdt_ex_tpu_torch — the PyTorch/CUDA port of ``delta_crdt_ex_tpu``.
+
+A second package beside the JAX one, which stays the reference it is
+held against bit for bit. It imports ``torch`` and nothing of JAX or of
+the JAX package (it keeps its own copies of the host-only modules it
+needs), mirrors the JAX package's module layout and names, and runs on
+the GPU unless the caller passes ``device="cpu"``.
+
+Slice 1 ports the hash-store replica path: ``start_link(AWLWWMap,
+store="hash", on_diffs=...)`` → ``mutate``/``mutate_batch`` →
+anti-entropy between neighbours → ``read``/``read_keys``, with the
+probe-window LWW lookup as a hand-written CUDA kernel for Hopper
+(``csrc/probe.cu``). See ``ROADMAP.md`` for what comes next.
+"""
+
+from delta_crdt_ex_tpu_torch.api import (
+    AWLWWMap,
+    DeltaCrdt,
+    mutate,
+    mutate_async,
+    mutate_batch,
+    read,
+    read_keys,
+    set_neighbours,
+    start_link,
+)
+from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap
+from delta_crdt_ex_tpu_torch.runtime.replica import Replica
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AWLWWMap",
+    "DeltaCrdt",
+    "HashAWLWWMap",
+    "Replica",
+    "mutate",
+    "mutate_async",
+    "mutate_batch",
+    "read",
+    "read_keys",
+    "set_neighbours",
+    "start_link",
+]

@@ -1,0 +1,209 @@
+"""The model-seam helpers the hash store shares with the binned model —
+the part of ``delta_crdt_ex_tpu/models/binned_map.py`` this slice runs:
+batch grouping, the delta-interval gap error, and the wire fan-in that
+combines several EntriesMsg bodies into one slice. ``BinnedAWLWWMap``
+and the binned merge paths wait for the binned-store slice.
+
+Batch grouping and the fan-in stay host numpy (they shape the wire and
+the kernel inputs exactly as the JAX package does); the combined slice
+lands on the caller's torch device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from delta_crdt_ex_tpu_torch.models.binned import pow2_tier as _pow2, pow4_tier as _pow4
+from delta_crdt_ex_tpu_torch.ops.apply import OP_PAD
+from delta_crdt_ex_tpu_torch.ops.binned import RowSlice, slice_from_wire
+
+
+class GroupedBatch:
+    """A local mutation batch grouped by bucket row for :func:`row_apply`.
+
+    ``index`` maps each original batch position to its (row, col) in the
+    grouped arrays so callers can recover per-op results (assigned dot
+    counters). Shapes are padded to power-of-two tiers to bound kernel
+    recompiles.
+    """
+
+    def __init__(self, rows, op, key, valh, ts, index):
+        self.rows = rows
+        self.op = op
+        self.key = key
+        self.valh = valh
+        self.ts = ts
+        self.index = index
+
+
+def group_batch(num_buckets: int, op, key, valh, ts) -> GroupedBatch:
+    """Group flat batch arrays (numpy, batch order) by bucket row.
+
+    Ops for the same key keep their relative order inside a row, which is
+    all the sequential batch semantics need (ops on different keys
+    commute; see :func:`delta_crdt_ex_tpu.ops.binned.row_apply`).
+    ``clear`` must be split out by the caller (``clear_all``).
+    """
+    n = len(op)
+    bucket = (key & np.uint64(num_buckets - 1)).astype(np.int64)
+    order: dict[int, int] = {}
+    cols = np.zeros(n, np.int64)
+    counts: dict[int, int] = {}
+    urow_of = np.zeros(n, np.int64)
+    for i in range(n):
+        b = int(bucket[i])
+        if b not in order:
+            order[b] = len(order)
+            counts[b] = 0
+        urow_of[i] = order[b]
+        cols[i] = counts[b]
+        counts[b] += 1
+    u = _pow2(max(len(order), 1))
+    m = _pow2(max(counts.values(), default=1))
+    rows = np.full(u, -1, np.int32)
+    for b, r in order.items():
+        rows[r] = b
+    g_op = np.full((u, m), OP_PAD, np.int32)
+    g_key = np.zeros((u, m), np.uint64)
+    g_valh = np.zeros((u, m), np.uint32)
+    g_ts = np.zeros((u, m), np.int64)
+    g_op[urow_of, cols] = op
+    g_key[urow_of, cols] = key
+    g_valh[urow_of, cols] = valh
+    g_ts[urow_of, cols] = ts
+    return GroupedBatch(rows, g_op, g_key, g_valh, g_ts, (urow_of, cols))
+
+
+_CTX_GAP_MSG = (
+    "delta-interval slice is not contiguous with the local context; "
+    "re-sync with a full-row slice (ctx_lo=0)"
+)
+
+
+class CtxGapError(ValueError):
+    # the port's own type: ``except CtxGapError`` in the port matches
+    # this class, never the JAX package's
+    """A delta-interval slice is not contiguous with the local context
+    (``need_ctx_gap``): growth cannot heal this — the *sender* must fall
+    back to a full-row (state-form, ``ctx_lo=0``) slice. A distinct type
+    so sync layers that ship delta-intervals can catch it and request the
+    fallback — the replica runtime's eager delta pushes do exactly that
+    (``runtime/replica.py``: ``_push_deltas`` sends intervals, the
+    ``_handle_entries_inner`` catcher answers a gap with a ``GetDiffMsg``
+    full-row repair).
+
+    ``gap_rows`` (numpy bool[U], when the row-granular kernel raised) is
+    the per-row gap mask; ``gapped_members`` (set[int], when a grouped
+    fan-in merge raised) maps those rows back to the offending member
+    slices so the caller replays only the gapped senders solo and keeps
+    the clean members in one grouped dispatch."""
+
+    gap_rows = None  # numpy bool[U] from the row-granular kernel
+    gapped_members: "set[int] | None" = None  # member indices of a grouped merge
+
+
+#: entry columns of the EntriesMsg wire dict, in RowSlice order
+_WIRE_ENTRY_COLS = ("key", "valh", "ts", "ctr", "alive")
+
+
+def combine_entry_arrays(arrays_list: list, device) -> "tuple[RowSlice, list]":
+    """Combine k host-plane ``EntriesMsg`` column dicts into ONE
+    :class:`~delta_crdt_ex_tpu_torch.ops.binned.RowSlice` on ``device`` — the ingress
+    coalescing fan-in: instead of k sequential ``merge_rows`` dispatches,
+    the runtime merges the whole group with one.
+
+    Safety preconditions (the caller's grouping rules):
+
+    - bucket rows are pairwise DISJOINT across messages — ``merge_rows``
+      is row-local, so the combined merge then equals the sequential
+      merges bit-for-bit (insert/kill/pack decisions per row see exactly
+      the state the sequential merge would);
+    - entry lane tiers are EQUAL (``key.shape[1]``) — the row-compact
+      sort width is then identical to the per-message merges, so even
+      dead-slot bytes match.
+
+    Writer tables are unioned in first-appearance order (message order,
+    slot order within a message) — the same order sequential
+    ``merge_gid_tables`` calls would append unknown gids in, keeping
+    ``ctx_gid`` bit-identical. Each message's ``node`` column and context
+    columns are remapped into the union table; zero-gid (empty) slots
+    map to a guaranteed-empty padding column so they stay "no local
+    slot" (-1) through the kernel's remap, exactly as before combining.
+
+    Returns ``(slice, offsets)`` where ``offsets[i] = (lo, hi)`` is
+    message i's row range in the combined slice (for per-message
+    accounting over the kernel's per-row counts).
+    """
+    # union writer table, first-appearance order
+    union_idx: dict[int, int] = {}
+    for a in arrays_list:
+        for g in np.asarray(a["ctx_gid"]).tolist():
+            if g != 0 and g not in union_idx:
+                union_idx[g] = len(union_idx)
+    rr_u = len(union_idx)
+    rp = _pow2(rr_u + 1, floor=2)  # ≥1 trailing zero column, tiered
+    null_col = rr_u  # first padding column: gid 0, remaps to -1
+    ctx_gid = np.zeros(rp, np.uint64)
+    if rr_u:
+        ctx_gid[:rr_u] = np.array(list(union_idx), dtype=np.uint64)
+
+    parts: dict[str, list] = {c: [] for c in _WIRE_ENTRY_COLS}
+    rows_parts: list = []
+    node_parts: list = []
+    ctx_rows_parts: list = []
+    ctx_lo_parts: list = []
+    offsets: list[tuple[int, int]] = []
+    off = 0
+    for a in arrays_list:
+        table = np.asarray(a["ctx_gid"])
+        rr_i = table.shape[0]
+        remap = np.full(rr_i, null_col, np.int64)
+        nz = np.nonzero(table)[0]
+        remap[nz] = [union_idx[int(g)] for g in table[nz].tolist()]
+        node = np.asarray(a["node"])
+        node_parts.append(remap[np.clip(node, 0, rr_i - 1)].astype(np.int32))
+        u_i = node.shape[0]
+        crows = np.zeros((u_i, rp), np.uint32)
+        clo = np.zeros((u_i, rp), np.uint32)
+        crows[:, remap[nz]] = np.asarray(a["ctx_rows"])[:, nz]
+        clo[:, remap[nz]] = np.asarray(a["ctx_lo"])[:, nz]
+        ctx_rows_parts.append(crows)
+        ctx_lo_parts.append(clo)
+        rows_parts.append(np.asarray(a["rows"], np.int32))
+        for c in _WIRE_ENTRY_COLS:
+            parts[c].append(np.asarray(a[c]))
+        offsets.append((off, off + u_i))
+        off += u_i
+
+    cols = {c: np.concatenate(parts[c], axis=0) for c in _WIRE_ENTRY_COLS}
+    rows = np.concatenate(rows_parts)
+    node = np.concatenate(node_parts, axis=0)
+    ctx_rows = np.concatenate(ctx_rows_parts, axis=0)
+    ctx_lo = np.concatenate(ctx_lo_parts, axis=0)
+
+    # pad the row axis to the wire tier (bounds distinct compiles); -1
+    # rows are dropped by the kernel's valid mask
+    u_pad = _pow4(max(off, 1))
+    if u_pad != off:
+        pad = u_pad - off
+        rows = np.concatenate([rows, np.full(pad, -1, np.int32)])
+        node = np.concatenate([node, np.zeros((pad,) + node.shape[1:], node.dtype)])
+        ctx_rows = np.concatenate([ctx_rows, np.zeros((pad, rp), np.uint32)])
+        ctx_lo = np.concatenate([ctx_lo, np.zeros((pad, rp), np.uint32)])
+        cols = {
+            c: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+            for c, v in cols.items()
+        }
+
+    sl = slice_from_wire(
+        {
+            "rows": rows,
+            **cols,
+            "node": node,
+            "ctx_rows": ctx_rows,
+            "ctx_lo": ctx_lo,
+            "ctx_gid": ctx_gid,
+        },
+        device,
+    )
+    return sl, offsets

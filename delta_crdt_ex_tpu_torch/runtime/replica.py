@@ -1,0 +1,1215 @@
+"""Replica driver — the host actor owning one device-resident CRDT state;
+the PyTorch port of ``delta_crdt_ex_tpu/runtime/replica.py``, trimmed
+to the hash-store slice.
+
+Counterpart of the reference's ``DeltaCrdt.CausalCrdt`` GenServer: the
+driver serialises every state transition through a lock and issues
+batched torch calls against the state on ``device``. What this slice
+carries, line for line the JAX replica's semantics:
+
+- ``mutate`` / ``mutate_async`` / ``mutate_batch`` → a queued mutation
+  batch flushed before any read or sync;
+- the ``on_diffs`` change feed with the reference's emission rules (the
+  before/after winner passes go through the probe-window kernel);
+- ``read`` (incrementally maintained read cache) / ``read_keys`` (the
+  probe-window kernel) / ``read_items`` / ``canonical_state_bytes``;
+- anti-entropy: eager own-delta pushes, full-row pushes of kill-touched
+  rows, and the digest-tree walk with ≤ 1 in-flight round per
+  neighbour, over the same wire messages as the JAX package;
+- neighbour monitoring, host payload gc, ``SYNC_DONE`` /
+  ``SYNC_ROUND`` / ``CAPACITY_GROWN`` telemetry, the threaded loop.
+
+WAL and storage, log shipping, ingress coalescing, fleets, tree gossip,
+serving, the observability plane, fault injection and the device mesh
+wait for later slices: their options raise ``NotImplementedError``
+naming the slice (:data:`LATER_OPTIONS`). Sync slices always travel on
+the host plane (numpy ``EntriesMsg`` bodies in the JAX package's
+dtypes), so the wire stays the JAX package's.
+"""
+
+from __future__ import annotations
+
+import logging
+import secrets
+import threading
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from delta_crdt_ex_tpu_torch.models.binned import pow2_tier, pow4_tier
+from delta_crdt_ex_tpu_torch.models.binned_map import CtxGapError
+from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap
+from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
+from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry
+from delta_crdt_ex_tpu_torch.runtime.clock import Clock
+from delta_crdt_ex_tpu_torch.runtime.transport import Down, LocalTransport, default_transport
+from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils.hashing import (
+    key_hash64,
+    key_hash64_batch,
+    value_hash32,
+    value_hash32_batch,
+)
+from delta_crdt_ex_tpu_torch.utils.transfers import as_u32, as_u64
+
+logger = logging.getLogger("delta_crdt_ex_tpu_torch")
+
+_SLICE_COLUMNS = ("key", "valh", "ts", "node", "ctr", "alive")
+
+# audited device↔host transfer sites (the JAX replica's labels)
+_TR_DIGEST_LEVELS = transfers.register("replica.digest_levels")
+_TR_READ_KEYS = transfers.register("replica.read_keys")
+_TR_APPLY_COUNTS = transfers.register("replica.apply_counts")
+_TR_INGEST_COUNTS = transfers.register("replica.ingest_counts")
+_TR_DIFF_WINNERS = transfers.register("replica.diff_winners")
+_TR_WINNER_ALL = transfers.register("replica.winner_all")
+_TR_WINNER_ROWS = transfers.register("replica.winner_rows")
+_TR_CANONICAL_STATE = transfers.register("replica.canonical_state")
+_TR_OWN_CTR_CACHE = transfers.register("replica.own_ctr_cache")
+_TR_SLICE_PAYLOAD_DOTS = transfers.register("replica.slice_payload_dots")
+_TR_SLICE_WIRE = transfers.register("replica.slice_wire")
+_TR_GC_SCAN = transfers.register("replica.gc_scan")
+
+#: JAX-replica options this port does not implement yet → the later
+#: slice that brings them (``ROADMAP.md`` queue 1) and the value that
+#: leaves the feature off (passing that value is accepted; ``...`` =
+#: the option only tunes an unported feature, so any value raises)
+LATER_OPTIONS = {
+    "storage_module": ("WAL and storage", None),
+    "storage_mode": ("WAL and storage", ...),
+    "wal_dir": ("WAL and storage", None),
+    "fsync_mode": ("WAL and storage", ...),
+    "segment_bytes": ("WAL and storage", ...),
+    "compact_every": ("WAL and storage", ...),
+    "checkpoint_interval": ("WAL and storage", ...),
+    "membership_compaction": ("WAL and storage", False),
+    "membership_retain": ("WAL and storage", ...),
+    "log_shipping": ("WAL, storage and log shipping", False),
+    "catchup_chunk_rows": ("WAL, storage and log shipping", ...),
+    "catchup_suffix_ratio": ("WAL, storage and log shipping", ...),
+    "ingress_coalesce": ("bulk fan-in", False),
+    "max_coalesce": ("bulk fan-in", ...),
+    "ingress_batch": ("bulk fan-in", ...),
+    "tree_gossip": ("tree gossip", False),
+    "tree_fanout": ("tree gossip", ...),
+    "tree_seed": ("tree gossip", ...),
+    "tree_degrade_ratio": ("tree gossip", ...),
+    "tree_group": ("tree gossip", None),
+    "obs": ("serving and observability", None),
+    "flight_dump_path": ("serving and observability", None),
+}
+
+
+def _check_later(opts: dict) -> None:
+    for name, value in opts.items():
+        if name not in LATER_OPTIONS:
+            raise TypeError(f"Replica() got an unexpected keyword argument {name!r}")
+        slice_name, off = LATER_OPTIONS[name]
+        if off is ... or value is not off and value != off:
+            raise NotImplementedError(
+                f"option {name}={value!r} is not ported to PyTorch yet; it "
+                f"comes with the {slice_name} slice (ROADMAP.md queue 1)"
+            )
+
+
+def _pow2(n: int, floor: int = 8) -> int:
+    return pow2_tier(n, floor)
+
+
+def _wire(n: int, floor: int = 8) -> int:
+    return pow4_tier(n, floor)
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device a replica keeps its state on. CUDA is the
+    default and must be present: a replica never falls back to the CPU
+    on its own (pass ``device="cpu"`` for that)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the PyTorch port runs on the GPU by "
+            "default; pass device='cpu' to run it on the CPU"
+        )
+    return dev
+
+
+class _LazyLevels:
+    """Digest-tree levels, device-resident, host-materialised per level
+    on first access (as uint32 numpy — the wire dtype of ``DiffMsg``
+    blocks)."""
+
+    __slots__ = ("_dev", "_host")
+
+    def __init__(self, levels: list) -> None:
+        self._dev = levels
+        self._host: list[np.ndarray | None] = [None] * len(levels)
+
+    def __len__(self) -> int:
+        return len(self._dev)
+
+    def __getitem__(self, level: int) -> np.ndarray:
+        h = self._host[level]
+        if h is None:
+            h = self._host[level] = as_u32(_TR_DIGEST_LEVELS.get(self._dev[level]))
+        return h
+
+
+class _PushJob:
+    """One planned eager-push extraction: the rows / interval bounds to
+    gather and the peers the resulting slice fans out to."""
+
+    __slots__ = ("kind", "rows", "lo", "pending", "peers", "advance", "new_cursor")
+
+    def __init__(self, kind, rows, lo, pending, peers, advance=None, new_cursor=0):
+        self.kind = kind  # "delta" (own-interval) | "rows" (kill-touched)
+        self.rows = rows  # int32[U] bucket rows, -1 pads (wire tier)
+        self.lo = lo  # uint32[U] interval lower bounds ("delta" only)
+        self.pending = pending  # real bucket indices
+        self.peers = peers  # "delta": [(addr, cursor array)]; "rows": [addr]
+        self.advance = advance  # "delta": own counters to advance cursors to
+        self.new_cursor = new_cursor  # "rows": touch-seq cursor after this push
+
+
+class Replica:
+    def __init__(
+        self,
+        crdt_module=HashAWLWWMap,
+        *,
+        name: Any = None,
+        node_id: int | None = None,
+        sync_interval: float = 0.2,
+        max_sync_size: int | str = 200,
+        on_diffs: Callable | tuple | None = None,
+        transport: LocalTransport | None = None,
+        clock: Clock | None = None,
+        capacity: int = 1024,
+        replica_capacity: int = 8,
+        tree_depth: int = 12,
+        levels_per_round: int = 8,
+        sync_timeout: float | None = None,
+        eager_deltas: bool = True,
+        gc_interval_ops: int = 4096,
+        device="cuda",
+        **later,
+    ):
+        _check_later(later)
+        if max_sync_size == "infinite":
+            self.max_sync_size: float = float("inf")
+        elif isinstance(max_sync_size, int) and not isinstance(max_sync_size, bool) and max_sync_size > 0:
+            self.max_sync_size = max_sync_size
+        else:
+            raise ValueError(f"{max_sync_size!r} is not a valid max_sync_size")
+
+        self.device = resolve_device(device)
+        self.model = crdt_module
+        self.name = name if name is not None else f"crdt-{secrets.token_hex(6)}"
+        self.sync_interval = sync_interval
+        self.on_diffs = on_diffs
+        self.tree_depth = tree_depth
+        self.num_buckets = 1 << tree_depth
+        self.levels_per_round = levels_per_round
+        self.transport = transport or default_transport()
+        self.clock = clock or Clock()
+        # in-flight sync slots expire (a lost message must not stall the
+        # edge forever on a lossy transport)
+        self.sync_timeout = (
+            sync_timeout if sync_timeout is not None else max(10 * sync_interval, 2.0)
+        )
+        self.eager_deltas = eager_deltas
+        self._lock = threading.RLock()
+        self._pending: list[tuple[str, Any, Any]] = []  # (op, key_term, value)
+        #: per-neighbour per-bucket own counter already pushed
+        self._push_cursor: dict[Any, np.ndarray] = {}
+        #: host cache of ctx_max[:, self_slot]; invalidated when local
+        #: mutations mint dots
+        self._own_ctr_cache: np.ndarray | None = None
+        #: rows touched by kills get a unique monotone stamp and are
+        #: pushed as full-row state slices
+        self._row_touch_seq = np.zeros(self.num_buckets, np.int64)
+        self._touch_seq = 0
+        self._rm_cursor: dict[Any, int] = {}
+        # dot (gid, bucket, ctr) -> (key_term, value)
+        self._payloads: dict[tuple[int, int, int], tuple[Any, Any]] = {}
+        self._key_terms: dict[int, Any] = {}
+        self.gc_interval_ops = int(gc_interval_ops)
+        self._gc_pressure = 0
+        self._gc_floor = 0
+        self._neighbours: list[Any] = []
+        self._monitors: set[Any] = set()
+        self._outstanding: dict[Any, float] = {}
+        self._tree: _LazyLevels | None = None
+        #: full-read result cache, maintained incrementally by local
+        #: flushes while complete; ``_read_cache_kh`` maps each cached
+        #: term to its canonical hash (the ==-collapse guard)
+        self._read_cache: dict | None = {}
+        self._read_cache_kh: dict | None = {}
+        self._seq = 0
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.addr = self.transport.canonical_addr(self.name)
+
+        self._init_fresh(
+            node_id if node_id is not None else (secrets.randbits(63) | 1),
+            capacity,
+            replica_capacity,
+        )
+        self.transport.register(self.name, self)
+
+    def _init_fresh(self, node_id: int, capacity: int, replica_capacity: int) -> None:
+        self.node_id = node_id
+        bin_cap = _pow2(max(capacity // self.num_buckets, 1), floor=4)
+        state = self.model.new(self.num_buckets, bin_cap, replica_capacity, device=self.device)
+        # claim slot 0 of the context table for our own gid
+        state.ctx_gid[0] = _i64(self.node_id)
+        self.state = state
+        self.self_slot = 0
+
+    # ------------------------------------------------------------------
+    # public API (facade parity: delta_crdt.ex:97-137)
+
+    def _acquire(self, timeout: float | None, what: str) -> None:
+        if not self._lock.acquire(timeout=-1 if timeout is None else timeout):
+            raise TimeoutError(
+                f"{what} timed out after {timeout}s waiting for replica {self.name!r}"
+            )
+
+    def mutate(self, f: str, args: list, timeout: float | None = None) -> None:
+        self._acquire(timeout, f"mutate {f!r}")
+        try:
+            self._enqueue(f, args)
+            self._flush()
+        finally:
+            self._lock.release()
+
+    def mutate_async(self, f: str, args: list) -> None:
+        with self._lock:
+            self._enqueue(f, args)
+        self.notify()
+
+    def mutate_batch(self, f: str, items: list, timeout: float | None = None) -> None:
+        """Bulk synchronous mutation: one ``f`` op per entry of ``items``,
+        enqueued under one lock acquisition and flushed once."""
+        self.apply_ops([(f, args) for args in items], timeout)
+
+    def apply_ops(self, ops: list, timeout: float | None = None) -> None:
+        """Apply ``ops`` — ``(f, args)`` pairs — in order as ONE batch."""
+        self._acquire(timeout, "apply_ops")
+        try:
+            pre = len(self._pending)
+            try:
+                for f, args in ops:
+                    self._enqueue(f, args)
+            except Exception:
+                del self._pending[pre:]
+                raise
+            self._flush()
+        finally:
+            self._lock.release()
+
+    def _enqueue(self, f: str, args: list) -> None:
+        ops = self.model.OPS
+        if f not in ops:
+            raise ValueError(f"unknown operation {f!r}; available: {sorted(ops)}")
+        _, arity = ops[f]
+        if len(args) != arity:
+            raise ValueError(f"{f} expects {arity} argument(s), got {len(args)}")
+        if f == "add":
+            value = args[1] if arity == 2 else True
+            self._pending.append(("add", args[0], value))
+        elif f == "remove":
+            self._pending.append(("remove", args[0], None))
+        else:
+            self._pending.append(("clear", None, None))
+
+    def read(self, timeout: float | None = None) -> "dict | set":
+        self._acquire(timeout, "read")
+        try:
+            self._flush()
+            if self._read_cache is None:
+                self._read_cache = self._rebuild_read_cache()
+            return self.model.read_view(dict(self._read_cache))
+        finally:
+            self._lock.release()
+
+    def read_keys(self, key_terms: list) -> "dict | set":
+        """Partial read (reference ``AWLWWMap.read/2``) through the
+        probe-window kernel."""
+        with self._lock:
+            self._flush()
+            hashes = [key_hash64(k) for k in key_terms]
+            k = _wire(max(len(hashes), 1))
+            arr = np.zeros(k, np.uint64)
+            arr[: len(hashes)] = hashes
+            w = self.model.winners_for_keys(self.state, self._u64_tensor(arr))
+            found, gid, ctr = _TR_READ_KEYS.get((w.found, w.gid, w.ctr))
+            gid = as_u64(gid)
+            out = {}
+            mask = self.num_buckets - 1
+            for i, term in enumerate(key_terms):
+                if found[i]:
+                    dot = (int(gid[i]), int(hashes[i]) & mask, int(ctr[i]))
+                    out[term] = self._payloads[dot][1]
+            return self.model.read_view(out)
+
+    def _u64_tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.uint64).view(np.int64).copy()).to(self.device)
+
+    def _i64_tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64).copy()).to(self.device)
+
+    def set_neighbours(self, neighbours: list) -> None:
+        """One-way sync edges (reference ``{:set_neighbours, …}``):
+        prunes monitors/in-flight slots for removed peers, then syncs."""
+        addrs = [n.addr if isinstance(n, Replica) else n for n in neighbours]
+        with self._lock:
+            removed = set(self._monitors) - set(addrs)
+            for addr in removed:
+                self.transport.demonitor(self.addr, addr)
+            self._neighbours = list(addrs)
+            self._monitors &= set(addrs)
+            self._outstanding = {a: v for a, v in self._outstanding.items() if a in addrs}
+            self._push_cursor = {a: c for a, c in self._push_cursor.items() if a in addrs}
+            self._rm_cursor = {a: c for a, c in self._rm_cursor.items() if a in addrs}
+            self.sync_to_all()
+
+    # ------------------------------------------------------------------
+    # local mutation batch
+
+    #: largest mutation batch applied in one kernel call
+    MAX_BATCH = 1024
+
+    def _flush(self) -> None:
+        while self._pending:
+            batch = self._pending[: self.MAX_BATCH]
+            self._pending = self._pending[self.MAX_BATCH :]
+            self._flush_batch(batch)
+
+    def _flush_batch(self, batch: list) -> None:
+        n = len(batch)
+        if n >= 64 and self.on_diffs is None and all(f == "add" for f, _t, _v in batch):
+            return self._flush_batch_adds(batch)
+        key = np.zeros(n, np.uint64)
+        valh = np.zeros(n, np.uint32)
+        op = np.full(n, OP_PAD, np.int32)
+        ts = np.zeros(n, np.int64)
+        any_clear = False
+        batch_hashes = None
+        if n >= 32:
+            batch_hashes = (
+                key_hash64_batch([t for _f, t, _v in batch]),
+                value_hash32_batch([v for _f, _t, v in batch]),
+            )
+        for i, (f, key_term, value) in enumerate(batch):
+            if f == "add":
+                op[i] = OP_ADD
+                key[i] = batch_hashes[0][i] if batch_hashes else key_hash64(key_term)
+                valh[i] = batch_hashes[1][i] if batch_hashes else value_hash32(value)
+            elif f == "remove":
+                op[i] = OP_REMOVE
+                key[i] = batch_hashes[0][i] if batch_hashes else key_hash64(key_term)
+            else:
+                op[i] = OP_CLEAR
+                any_clear = True
+            ts[i] = self.clock.next()
+            if f != "clear":
+                self._key_terms[key[i].item()] = key_term
+
+        touched: dict[int, Any] = {}
+        for i, (f, key_term, _v) in enumerate(batch):
+            if f != "clear":
+                touched[int(key[i])] = key_term
+
+        # the before/after winner passes feed only the diff callback (and
+        # clear's full-map diff)
+        need_winners = self.on_diffs is not None or any_clear
+        w_before = self._batch_winner_records(touched, any_clear) if need_winners else {}
+
+        # apply segments split at clears (clear is a full-state kernel)
+        n_changed = 0
+        ctr_of_op = np.zeros(n, np.uint32)
+        seg_start = 0
+        for i in range(n + 1):
+            if i == n or op[i] == OP_CLEAR:
+                if i > seg_start:
+                    sl = slice(seg_start, i)
+                    n_changed += self._apply_segment(
+                        op[sl], key[sl], valh[sl], ts[sl], ctr_of_op[sl]
+                    )
+                if i < n:  # the clear itself
+                    n_cleared = int(self.state.num_alive())
+                    self.state = self.model.clear_all(self.state)
+                    n_changed += n_cleared
+                seg_start = i + 1
+        self._seq += 1
+        if any_clear:
+            self._stamp_rows(np.arange(self.num_buckets, dtype=np.int64))
+
+        # payloads for surviving adds (last op per key wins, a clear
+        # shadows everything before it)
+        survivor: dict[int, int] = {}
+        blocked = False
+        for i in range(n - 1, -1, -1):
+            f, key_term, value = batch[i]
+            if f == "clear":
+                blocked = True
+            elif not blocked and int(key[i]) not in survivor:
+                survivor[int(key[i])] = i if f == "add" else -1
+        for kh, i in survivor.items():
+            if i >= 0:
+                _f, key_term, value = batch[i]
+                dot = (self.node_id, kh & (self.num_buckets - 1), int(ctr_of_op[i]))
+                self._payloads[dot] = (key_term, value)
+
+        # maintain the full-read cache in place when it is complete
+        maintained = self._read_cache is not None and self._read_cache_kh is not None
+        if maintained:
+            cache, ckh = self._read_cache, self._read_cache_kh
+            try:
+                for i, (f, key_term, value) in enumerate(batch):
+                    if f == "clear":
+                        cache.clear()
+                        ckh.clear()
+                        continue
+                    kh = int(key[i])
+                    prev = ckh.get(key_term)
+                    if prev is not None and prev != kh:
+                        self._read_cache = None
+                        self._read_cache_kh = None
+                        maintained = False
+                        break
+                    if f == "add":
+                        cache[key_term] = value
+                        ckh[key_term] = kh
+                    else:
+                        cache.pop(key_term, None)
+                        ckh.pop(key_term, None)
+            except TypeError:
+                self._read_cache = None
+                self._read_cache_kh = None
+                maintained = False
+
+        if need_winners:
+            w_after = self._batch_winner_records(touched, any_clear)
+            touched_all = dict(touched)
+            for kh in set(w_before) | set(w_after):
+                touched_all.setdefault(kh, self._key_terms.get(kh))
+            self._emit_diffs(touched_all, w_before, w_after, maintained)
+        else:
+            self._note_state_changed(lambda: n_changed, maintained)
+        self._gc_pressure += n
+        self._maybe_gc()
+
+    def _flush_batch_adds(self, batch: list) -> None:
+        """All-adds fast path of ``_flush_batch`` (no clears, no diff
+        subscriber); identical semantics."""
+        n = len(batch)
+        terms = [t for _f, t, _v in batch]
+        values = [v for _f, _t, v in batch]
+        key = np.asarray(key_hash64_batch(terms), np.uint64)
+        valh = np.asarray(value_hash32_batch(values), np.uint32)
+        ts = self.clock.next_n(n)
+        op = np.full(n, OP_ADD, np.int32)
+        kh_list = key.tolist()
+        self._key_terms.update(zip(kh_list, terms))
+
+        ctr_of_op = np.zeros(n, np.uint32)
+        n_changed = self._apply_segment(op, key, valh, ts, ctr_of_op)
+        self._seq += 1
+
+        last_idx = dict(zip(kh_list, range(n)))
+        mask = self.num_buckets - 1
+        b_l = (key & np.uint64(mask)).astype(np.int64).tolist()
+        c_l = ctr_of_op.tolist()
+        node_id = self.node_id
+        self._payloads.update(
+            ((node_id, b_l[i], c_l[i]), (terms[i], values[i]))
+            for i in last_idx.values()
+        )
+
+        maintained = self._read_cache is not None and self._read_cache_kh is not None
+        if maintained:
+            try:
+                d_kh = dict(zip(terms, kh_list))
+                if len(d_kh) < len(set(kh_list)):
+                    maintained = False
+                else:
+                    ckh = self._read_cache_kh
+                    for t in ckh.keys() & d_kh.keys():
+                        if ckh[t] != d_kh[t]:
+                            maintained = False
+                            break
+            except TypeError:
+                maintained = False
+            if maintained:
+                self._read_cache.update(zip(terms, values))
+                self._read_cache_kh.update(d_kh)
+            else:
+                self._read_cache = None
+                self._read_cache_kh = None
+
+        self._note_state_changed(lambda: n_changed, maintained)
+        self._gc_pressure += n
+        self._maybe_gc()
+
+    def _apply_segment(self, op, key, valh, ts, ctr_out) -> int:
+        """Apply one clear-free batch segment; fills ``ctr_out`` with the
+        dot counter assigned to each op. Returns the changed-key count."""
+        g = self.model.group_batch(self.num_buckets, op, key, valh, ts)
+        args = (
+            self._i64_tensor(g.rows),
+            torch.from_numpy(g.op.copy()).to(self.device),
+            self._u64_tensor(g.key),
+            self._i64_tensor(g.valh),
+            self._i64_tensor(g.ts),
+        )
+        while True:
+            res = self.model.row_apply(self.state, self.self_slot, *args)
+            if bool(res.ok):
+                self.state = self.model.post_apply(
+                    res.state, res, on_grow=self._grown_telemetry
+                )
+                break
+            self._grow_bin()
+        self._own_ctr_cache = None  # fresh own dots: push cursors lag
+        killed_mask, ctr_assigned, n_keys_changed = _TR_APPLY_COUNTS.get(
+            (res.row_killed, res.ctr_assigned, res.n_keys_changed)
+        )
+        self._stamp_rows(g.rows[killed_mask & (g.rows >= 0)])
+        urow, cols = g.index
+        ctr_out[:] = ctr_assigned[urow, cols]
+        return int(n_keys_changed)
+
+    def _stamp_rows(self, rows: np.ndarray) -> None:
+        """Mark rows as needing a full-row push, each with a UNIQUE
+        monotone stamp."""
+        if len(rows) == 0:
+            return
+        rows = np.unique(rows)
+        k = len(rows)
+        self._row_touch_seq[rows] = np.arange(
+            self._touch_seq + 1, self._touch_seq + 1 + k, dtype=np.int64
+        )
+        self._touch_seq += k
+
+    def _grow_bin(self) -> None:
+        # the hash store's overflow escape: a whole-table rehash
+        self.state = self.model.grow_for_apply(self.state)
+        self._grown_telemetry(self.state)
+
+    def _grown_telemetry(self, state) -> None:
+        if telemetry.has_handlers(telemetry.CAPACITY_GROWN):
+            telemetry.execute(
+                telemetry.CAPACITY_GROWN,
+                {"capacity": state.capacity, "replica_capacity": state.replica_capacity},
+                {"name": self.name},
+            )
+
+    # ------------------------------------------------------------------
+    # diffs, callback, telemetry (reference causal_crdt.ex:344-404)
+
+    def _batch_winner_records(self, touched: dict[int, Any], full: bool) -> dict[int, tuple]:
+        """Winner records for a mutation batch's diff: the probe-window
+        kernel over the touched keys, or the full-map pass for a batch
+        that holds a ``clear``."""
+        if full:
+            return self._winner_records_rows(None)
+        if not touched:
+            return {}
+        tkeys = np.zeros(_wire(max(len(touched), 1)), np.uint64)
+        tkeys[: len(touched)] = list(touched.keys())
+        w = self.model.winners_for_keys(self.state, self._u64_tensor(tkeys))
+        found, gid, ctr, valh, ts = _TR_DIFF_WINNERS.get(
+            (w.found, w.gid, w.ctr, w.valh, w.ts)
+        )
+        gid = as_u64(gid)
+        out = {}
+        for i, kh in enumerate(touched):
+            if found[i]:
+                out[kh] = (int(gid[i]), int(ctr[i]), int(valh[i]), int(ts[i]))
+        return out
+
+    def _winner_arrays_rows(self, rows: np.ndarray | None) -> tuple:
+        """LWW winner entries within the given bucket rows (``None`` = the
+        whole map) as flat numpy columns ``(key, gid, ctr, valh, ts)`` in
+        the JAX package's dtypes."""
+        def host(w, site):
+            win, key, gid, ctr, valh, ts = site.get(
+                (w.win, w.key, w.gid, w.ctr, w.valh, w.ts)
+            )
+            u_idx, b_idx = np.nonzero(win)
+            return (
+                as_u64(key)[u_idx, b_idx],
+                as_u64(gid)[u_idx, b_idx],
+                as_u32(ctr[u_idx, b_idx]),
+                as_u32(valh[u_idx, b_idx]),
+                ts[u_idx, b_idx],
+            )
+
+        if rows is None:
+            return host(self.model.winner_all(self.state), _TR_WINNER_ALL)
+        cols: list[tuple] = []
+        CHUNK = 4096
+        for s in range(0, len(rows), CHUNK):
+            chunk = rows[s : s + CHUNK]
+            padded = np.full(_pow2(len(chunk)), -1, np.int64)
+            padded[: len(chunk)] = chunk
+            w = self.model.winner_rows(self.state, self._i64_tensor(padded))
+            cols.append(host(w, _TR_WINNER_ROWS))
+        if not cols:
+            return (
+                np.zeros(0, np.uint64),
+                np.zeros(0, np.uint64),
+                np.zeros(0, np.uint32),
+                np.zeros(0, np.uint32),
+                np.zeros(0, np.int64),
+            )
+        return tuple(np.concatenate(c) for c in zip(*cols))
+
+    def _winner_records_rows(self, rows: np.ndarray | None) -> dict[int, tuple]:
+        key, gid, ctr, valh, ts = self._winner_arrays_rows(rows)
+        return dict(
+            zip(
+                key.tolist(),
+                zip(gid.tolist(), ctr.tolist(), valh.tolist(), ts.tolist()),
+            )
+        )
+
+    def canonical_state_bytes(self) -> bytes:
+        """Topology-independent canonical projection of the CRDT state:
+        the sorted per-key LWW winner records plus the causal context
+        re-keyed by writer gid — byte-identical to the JAX replica's
+        ``canonical_state_bytes`` for the same CRDT state."""
+        with self._lock:
+            self._flush()
+            key, gid, ctr, valh, ts = self._winner_arrays_rows(None)
+            order = np.lexsort((ts, valh, ctr, gid, key))
+            winners = np.stack(
+                [
+                    key[order].astype(np.uint64),
+                    gid[order].astype(np.uint64),
+                    ctr[order].astype(np.uint64),
+                    valh[order].astype(np.uint64),
+                    ts[order].astype(np.uint64),
+                ],
+                1,
+            )
+            st = self.state
+            gids, ctx = _TR_CANONICAL_STATE.get((st.ctx_gid, st.ctx_max))
+            gids, ctx = as_u64(gids), as_u32(ctx)
+            # writers with an all-zero context column are arrival
+            # artifacts: keep only writers that contributed coverage
+            live = np.nonzero((gids != 0) & ctx.any(axis=0))[0]
+            g_order = live[np.argsort(gids[live], kind="stable")]
+            return winners.tobytes() + gids[g_order].tobytes() + ctx[:, g_order].tobytes()
+
+    def _note_state_changed(
+        self, count_fn: Callable[[], Any], keep_read_cache: bool = False
+    ) -> None:
+        """Invalidate read/tree caches and emit ``SYNC_DONE`` telemetry
+        (``count_fn`` runs only when a handler is attached; it may return
+        an int or a tuple of scalars to sum)."""
+        self._tree = None
+        if not keep_read_cache:
+            self._read_cache = None
+            self._read_cache_kh = None
+        if telemetry.has_handlers(telemetry.SYNC_DONE):
+            n = count_fn()
+            if isinstance(n, tuple):
+                n = sum(int(c) for c in n)
+            telemetry.execute(
+                telemetry.SYNC_DONE, {"keys_updated_count": int(n)}, {"name": self.name}
+            )
+
+    def _emit_diffs(
+        self,
+        touched: dict[int, Any],
+        before: dict,
+        after: dict,
+        keep_read_cache: bool = False,
+    ) -> None:
+        """Reference emission rules (``causal_crdt.ex:344-381``):
+        telemetry counts dot-level changes; the callback compares read
+        values, so no-op re-adds are silent and a ``None`` value emits a
+        remove diff."""
+        internal_changed = 0
+        diffs = []
+        mask = self.num_buckets - 1
+        for kh, term in touched.items():
+            b, a = before.get(kh), after.get(kh)
+            if b != a:
+                internal_changed += 1
+            old_rec = self._payloads.get((b[0], kh & mask, b[1])) if b else None
+            new_rec = self._payloads.get((a[0], kh & mask, a[1])) if a else None
+            old_val = old_rec[1] if old_rec else None
+            new_val = new_rec[1] if new_rec else None
+            if old_val == new_val:
+                continue
+            if new_val is None:
+                diffs.append(("remove", term))
+            else:
+                diffs.append(("add", term, new_val))
+
+        self._note_state_changed(lambda: internal_changed, keep_read_cache)
+        if diffs and self.on_diffs is not None:
+            if isinstance(self.on_diffs, tuple):
+                fn, extra = self.on_diffs
+                fn(*extra, diffs)
+            else:
+                self.on_diffs(diffs)
+
+    def _rebuild_read_cache(self) -> dict:
+        out, kh_map = self._read_pairs()
+        self._read_cache_kh = kh_map
+        return out
+
+    def _read_pairs(self) -> "tuple[dict, dict | None]":
+        key, gid, ctr, _valh, ts = self._winner_arrays_rows(None)
+
+        def build(k, g, c):
+            bucket = (k & np.uint64(self.num_buckets - 1)).astype(np.int64)
+            dots = zip(g.tolist(), bucket.tolist(), c.tolist())
+            try:
+                return dict(map(self._payloads.__getitem__, dots))
+            except TypeError:
+                for term, _value in self._payloads.values():
+                    try:
+                        hash(term)
+                    except TypeError:
+                        raise TypeError(
+                            f"key term {term!r} is unhashable in Python; use "
+                            "read_items() for maps with unhashable keys"
+                        ) from None
+                raise
+
+        out = build(key, gid, ctr)
+        if len(out) == len(key):
+            return out, dict(zip(out.keys(), key.tolist()))
+        # ==-equal terms with distinct canonical keys (1 vs True): insert
+        # in ascending LWW order so every replica keeps the same value
+        order = np.lexsort((ctr, gid, ts))
+        return build(key[order], gid[order], ctr[order]), None
+
+    def read_items(self) -> list[tuple[Any, Any]]:
+        """Read as (key, value) pairs — supports unhashable key terms."""
+        with self._lock:
+            self._flush()
+            key, gid, ctr, _valh, _ts = self._winner_arrays_rows(None)
+            bucket = (key & np.uint64(self.num_buckets - 1)).astype(np.int64)
+            dots = zip(gid.tolist(), bucket.tolist(), ctr.tolist())
+            return list(map(self._payloads.__getitem__, dots))
+
+    # ------------------------------------------------------------------
+    # anti-entropy (reference causal_crdt.ex:252-335)
+
+    def _ensure_tree(self) -> _LazyLevels:
+        if self._tree is None:
+            self._tree = _LazyLevels(self.model.tree_from_leaves(self.state.leaf))
+        return self._tree
+
+    def sync_to_all(self) -> None:
+        """One sync round to all monitored neighbours: push own fresh
+        deltas, then open the digest-walk round."""
+        with self._lock:
+            self._flush()
+            self._monitor_neighbours()
+            self._push_deltas()
+            for n in list(self._monitors):
+                if n != self.addr:
+                    self._open_walk(n)
+
+    def _open_walk(self, n) -> bool:
+        """Open one digest-walk round toward ``n`` (≤ 1 in flight)."""
+        now = time.monotonic()
+        expiry = self._outstanding.get(n)
+        if expiry is not None and now < expiry:
+            return False
+        tree = self._ensure_tree()
+        root = np.zeros(1, np.int64)
+        blocks = sync_proto.make_blocks(tree, 0, root, self.levels_per_round)
+        msg = sync_proto.DiffMsg(
+            originator=self.addr, frm=self.addr, to=n, level=0, idx=root,
+            blocks=blocks, seq=self._seq,
+        )
+        if self.transport.send(n, msg):
+            self._outstanding[n] = now + self.sync_timeout
+            return True
+        logger.debug("tried to sync with a dead neighbour: %r", n)
+        return False
+
+    def _push_deltas(self) -> None:
+        """Eagerly push own fresh dots to each neighbour as
+        delta-interval slices (Almeida et al.'s delta mode), plus
+        full-row slices of kill-touched rows."""
+        for job in self._eager_jobs():
+            self._emit_push_job(job, self._extract_push_job(job))
+
+    def _eager_jobs(self) -> list:
+        jobs: list = []
+        if not self.eager_deltas:
+            return jobs
+        if self._own_ctr_cache is None:
+            self._own_ctr_cache = as_u32(
+                _TR_OWN_CTR_CACHE.get(self.state.ctx_max[:, self.self_slot])
+            )
+        own = self._own_ctr_cache
+        limit = int(min(self.max_sync_size, self.num_buckets))
+
+        groups: dict[bytes, list] = {}
+        for n in list(self._monitors):
+            if n == self.addr:
+                continue
+            cur = self._push_cursor.get(n)
+            if cur is None:
+                cur = np.zeros(self.num_buckets, np.uint32)
+                self._push_cursor[n] = cur
+            groups.setdefault(cur.tobytes(), []).append((n, cur))
+        for members in groups.values():
+            cur0 = members[0][1]
+            pending = np.nonzero(own > cur0)[0]
+            if len(pending) == 0:
+                continue
+            pending = pending[:limit]
+            rows = np.full(_wire(max(len(pending), 1)), -1, np.int32)
+            rows[: len(pending)] = pending
+            lo = np.zeros(len(rows), np.uint32)
+            lo[: len(pending)] = cur0[pending]
+            jobs.append(
+                _PushJob("delta", rows, lo, pending, members, advance=own[pending].copy())
+            )
+
+        rm_groups: dict[int, list] = {}
+        for n in list(self._monitors):
+            if n == self.addr:
+                continue
+            rm_groups.setdefault(self._rm_cursor.get(n, 0), []).append(n)
+        for rc, members in rm_groups.items():
+            pend = np.nonzero(self._row_touch_seq > rc)[0]
+            if len(pend) == 0:
+                continue
+            order = np.argsort(self._row_touch_seq[pend], kind="stable")
+            pend = pend[order][:limit]
+            new_cursor = int(self._row_touch_seq[pend[-1]])
+            rows = np.full(_wire(max(len(pend), 1)), -1, np.int32)
+            rows[: len(pend)] = pend
+            jobs.append(_PushJob("rows", rows, None, pend, members, new_cursor=new_cursor))
+        return jobs
+
+    def _extract_push_job(self, job: _PushJob):
+        if job.kind == "delta":
+            return self.model.extract_own_delta(
+                self.state,
+                self._i64_tensor(job.rows),
+                self.self_slot,
+                torch.tensor(_i64(self.node_id), dtype=torch.int64, device=self.device),
+                self._i64_tensor(job.lo),
+            )
+        return self.model.extract_rows(self.state, self._i64_tensor(job.rows))
+
+    def _emit_push_job(self, job: _PushJob, sl) -> None:
+        arrays, payloads = self._slice_wire(sl, job.rows)
+        buckets = job.pending.astype(np.int64)
+        for p in job.peers:
+            n = p[0] if job.kind == "delta" else p
+            msg = sync_proto.EntriesMsg(
+                originator=self.addr, frm=self.addr, to=n,
+                buckets=buckets, arrays=arrays, payloads=payloads,
+            )
+            if self.transport.send(n, msg):
+                if job.kind == "delta":
+                    p[1][job.pending] = job.advance
+                else:
+                    self._rm_cursor[n] = job.new_cursor
+
+    def _monitor_neighbours(self) -> None:
+        for n in list(self._neighbours):
+            if n in self._monitors:
+                continue
+            if self.transport.monitor(self.addr, n):
+                self._monitors.add(n)
+            else:
+                logger.debug("tried to monitor a dead neighbour: %r", n)
+
+    def handle(self, msg) -> None:
+        with self._lock:
+            if isinstance(msg, sync_proto.DiffMsg):
+                self._handle_diff(msg)
+            elif isinstance(msg, sync_proto.GetDiffMsg):
+                self._flush()
+                self._send_entries(to=msg.frm, buckets=msg.buckets, originator=msg.originator)
+                self._outstanding.pop(msg.frm, None)
+            elif isinstance(msg, sync_proto.EntriesMsg):
+                self._handle_entries_inner(msg)
+            elif isinstance(msg, sync_proto.AckMsg):
+                self._outstanding.pop(msg.clear_addr, None)
+            elif isinstance(msg, Down):
+                self._monitors.discard(msg.addr)
+                self._outstanding.pop(msg.addr, None)
+            elif isinstance(msg, (sync_proto.GetLogMsg, sync_proto.LogChunkMsg)):
+                raise NotImplementedError(
+                    "log-shipping catch-up is not ported to PyTorch yet; it comes "
+                    "with the WAL, storage and log shipping slice"
+                )
+            elif isinstance(msg, sync_proto.FleetFrameMsg):
+                raise NotImplementedError(
+                    "fleet frames are not ported to PyTorch yet; they come with "
+                    "the fleets slice"
+                )
+            else:
+                raise TypeError(f"unknown message: {msg!r}")
+
+    def _handle_diff(self, msg: sync_proto.DiffMsg) -> None:
+        self._flush()
+        tree = self._ensure_tree()
+        end_level, end_idx = sync_proto.walk(
+            tree, msg.level, msg.idx, msg.blocks, self.max_sync_size
+        )
+        if len(end_idx) == 0:
+            # trees agree under every compared node ({:ok, []} path)
+            cleared = self.addr if msg.originator != self.addr else msg.frm
+            self.transport.send(msg.originator, sync_proto.AckMsg(clear_addr=cleared))
+            return
+        if end_level == self.tree_depth:
+            buckets = end_idx[: int(min(self.max_sync_size, len(end_idx)))]
+            if msg.originator == self.addr:
+                # walk ended at the originator: ship entries directly
+                self._send_entries(to=msg.frm, buckets=buckets, originator=self.addr)
+                self._outstanding.pop(msg.frm, None)
+            else:
+                self.transport.send(
+                    msg.originator,
+                    sync_proto.GetDiffMsg(
+                        originator=msg.originator, frm=self.addr, to=msg.originator, buckets=buckets
+                    ),
+                )
+            return
+        # continue the ping-pong with our own digests beneath the frontier
+        blocks = sync_proto.make_blocks(tree, end_level, end_idx, self.levels_per_round)
+        self.transport.send(
+            msg.frm,
+            sync_proto.DiffMsg(
+                originator=msg.originator,
+                frm=self.addr,
+                to=msg.frm,
+                level=end_level,
+                idx=end_idx,
+                blocks=blocks,
+                seq=self._seq,
+            ),
+        )
+
+    def _slice_wire(self, sl, rows: np.ndarray) -> tuple[dict, dict]:
+        """Host-plane wire form of a RowSlice: the EntriesMsg column dict
+        (JAX dtypes, context rows for exactly the shipped buckets) plus
+        the payload dict of every alive dot in the slice."""
+        node_h, ctr_h, alive_h, gid_h = _TR_SLICE_PAYLOAD_DOTS.get(
+            (sl.node, sl.ctr, sl.alive, sl.ctx_gid)
+        )
+        host = wire_from_host({"node": node_h, "ctr": ctr_h, "alive": alive_h, "ctx_gid": gid_h})
+        u_idx, b_idx = np.nonzero(host["alive"])
+        gid_l = host["ctx_gid"][host["node"][u_idx, b_idx]].tolist()
+        row_l = rows[u_idx].tolist()
+        ctr_l = host["ctr"][u_idx, b_idx].tolist()
+        pay = self._payloads
+        payloads = {dot: pay[dot] for dot in zip(gid_l, row_l, ctr_l)}
+
+        names = (*_SLICE_COLUMNS, "ctx_rows", "ctx_lo", "ctx_gid")
+        got = wire_from_host(
+            _TR_SLICE_WIRE.get({c: getattr(sl, c) for c in names if c not in host})
+        )
+        arrays = {c: host[c] if c in host else got[c] for c in names}
+        arrays["rows"] = rows  # row indices are control metadata: numpy
+        return arrays, payloads
+
+    def _send_entries(self, to, buckets: np.ndarray, originator) -> bool:
+        rows = np.full(_wire(max(len(buckets), 1)), -1, np.int32)
+        rows[: len(buckets)] = np.asarray(buckets, np.int32)
+        sl = self.model.extract_rows(self.state, self._i64_tensor(rows))
+        arrays, payloads = self._slice_wire(sl, rows)
+        return self.transport.send(
+            to,
+            sync_proto.EntriesMsg(
+                originator=originator,
+                frm=self.addr,
+                to=to,
+                buckets=np.asarray(buckets, np.int64),
+                arrays=arrays,
+                payloads=payloads,
+            ),
+        )
+
+    def _handle_entries_inner(self, msg: sync_proto.EntriesMsg) -> None:
+        self._flush()
+        t0 = time.perf_counter()
+        a = msg.arrays
+        sl = slice_from_wire(a, self.device)
+        rows_np = np.asarray(a["rows"])
+
+        # the before/after winner passes feed only the on_diffs callback
+        want_diffs = self.on_diffs is not None
+        keys_b = self._winner_records_rows(rows_np[rows_np >= 0]) if want_diffs else {}
+        # payloads first: diff values for incoming winners must resolve
+        self._register_slice_payloads(msg.payloads)
+
+        try:
+            self.state, res = self.model.merge_rows_into(
+                self.state, sl, on_grow=self._grown_telemetry
+            )
+        except CtxGapError:
+            # a delta-interval push is not contiguous with our context:
+            # ask the sender for the full rows (the get_diff repair path)
+            logger.debug("delta push from %r gapped; requesting full rows", msg.frm)
+            self.transport.send(
+                msg.frm,
+                sync_proto.GetDiffMsg(
+                    originator=self.addr, frm=self.addr, to=msg.frm,
+                    buckets=np.asarray(msg.buckets),
+                ),
+            )
+            self._gc_pressure += len(msg.payloads)
+            return
+
+        self._seq += 1
+        if want_diffs:
+            keys_a = self._winner_records_rows(rows_np[rows_np >= 0])
+            touched: dict[int, Any] = {}
+            for kh in set(keys_b) | set(keys_a):
+                term = self._key_terms.get(kh)
+                if term is not None:
+                    touched[kh] = term
+            self._emit_diffs(touched, keys_b, keys_a)
+        else:
+            self._note_state_changed(
+                lambda ins=res.n_inserted, kill=res.n_killed: (ins, kill)
+            )
+        if telemetry.has_handlers(telemetry.SYNC_ROUND):
+            telemetry.execute(
+                telemetry.SYNC_ROUND,
+                {
+                    "duration_s": time.perf_counter() - t0,
+                    "buckets": int(len(msg.buckets)),
+                    "entries": len(msg.payloads),
+                },
+                {"name": self.name, "plane": "host"},
+            )
+        self._gc_pressure += len(msg.payloads) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        self._maybe_gc()
+
+    def _register_slice_payloads(self, payloads: dict) -> None:
+        self._payloads.update(payloads)
+        for _dot, (key_term, _val) in payloads.items():
+            self._key_terms[key_hash64(key_term)] = key_term
+
+    # ------------------------------------------------------------------
+    # payload GC (host dictionaries must track device alive masks)
+
+    def gc(self) -> None:
+        """Prune host payload/key dictionaries to currently-alive dots."""
+        with self._lock:
+            st = self.state
+            alive, node_h, gid_h, ctr_h, key_h = _TR_GC_SCAN.get(
+                (st.alive, st.node, st.ctx_gid, st.ctr, st.key)
+            )
+            gid_h, key_h = as_u64(gid_h), as_u64(key_h)
+            idx = np.nonzero(alive)
+            gid_l = gid_h[node_h[idx]].tolist()
+            ctr_l = ctr_h[idx].tolist()
+            keys = key_h[idx]
+            bucket = (keys & np.uint64(self.num_buckets - 1)).astype(np.int64)
+            live = set(zip(gid_l, bucket.tolist(), ctr_l))
+            self._payloads = {d: p for d, p in self._payloads.items() if d in live}
+            keep_keys = set(keys.tolist())
+            self._key_terms = {h: t for h, t in self._key_terms.items() if h in keep_keys}
+            self._gc_pressure = 0
+            self._gc_floor = len(self._payloads)
+
+    def _maybe_gc(self) -> None:
+        if self._gc_pressure >= max(self.gc_interval_ops, self._gc_floor >> 1):
+            self.gc()
+
+    # ------------------------------------------------------------------
+    # threaded event loop (the reference's GenServer process analog)
+
+    #: messages handled per mailbox drain (bounded so periodic duties
+    #: are never starved under sustained ingress)
+    DRAIN_BATCH = 256
+
+    def notify(self) -> None:
+        if self._thread is not None:
+            self._wake.set()
+
+    def process_pending(self) -> int:
+        """Deterministic drive: handle queued messages now (at most
+        ``8 × DRAIN_BATCH`` per call)."""
+        n = 0
+        for _ in range(8):
+            batch = self.transport.drain_nowait(self.addr, self.DRAIN_BATCH)
+            if not batch:
+                break
+            n += len(batch)
+            for m in batch:
+                self.handle(m)
+            if len(batch) < self.DRAIN_BATCH:
+                break
+        return n
+
+    def stats(self) -> dict:
+        from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+
+        with self._lock:
+            return {
+                "name": self.name,
+                "node_id": self.node_id,
+                "sequence_number": self._seq,
+                "neighbours": list(self._neighbours),
+                "outstanding_syncs": len(self._outstanding),
+                "payloads": len(self._payloads),
+                "device": str(self.device),
+                "table_size": self.state.table_size,
+                # process-wide launch count of the probe-window kernel
+                "kernel_launches": {probe_lookup_kernel.name: probe_lookup_kernel.launches},
+                # process-wide per-site device↔host crossings
+                "transfers": transfers.snapshot(),
+            }
+
+    def start(self) -> "Replica":
+        """Run the periodic anti-entropy loop in a background thread
+        (first sync fires immediately)."""
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def loop():
+            next_sync = time.monotonic()
+            while not self._stop.is_set():
+                self.process_pending()
+                with self._lock:
+                    if self._pending:
+                        self._flush()
+                now = time.monotonic()
+                if now >= next_sync:
+                    self.sync_to_all()
+                    next_sync = now + self.sync_interval
+                self._wake.wait(timeout=max(0.0, min(next_sync - time.monotonic(), 0.05)))
+                self._wake.clear()
+
+        self._thread = threading.Thread(target=loop, name=f"crdt-{self.name}", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Terminate: best-effort final sync, then deregister (fires
+        ``Down`` at monitoring peers)."""
+        if self._thread is not None:
+            self._stop.set()
+            self._wake.set()
+            self._thread.join(timeout=30)
+            self._thread = None
+        try:
+            self.sync_to_all()
+        except Exception:  # best-effort, like the reference's terminate path
+            logger.debug("final sync on terminate failed", exc_info=True)
+        self.transport.unregister(self.name)

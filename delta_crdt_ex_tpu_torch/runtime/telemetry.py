@@ -1,0 +1,55 @@
+"""Telemetry — the observability surface (reference: one ``:telemetry`` event).
+
+The reference fires ``[:delta_crdt, :sync, :done]`` with
+``%{keys_updated_count: n}`` and ``%{name: name}`` on **every** merge —
+local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
+contract here, plus the capacity-growth and sync-round events, under
+the same attach/execute API. The events of later slices (WAL, fleets,
+serving, …) come with them.
+
+The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
+(the port imports nothing of the JAX package).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import defaultdict
+from typing import Callable
+
+SYNC_DONE = ("delta_crdt", "sync", "done")  # measurements: keys_updated_count
+CAPACITY_GROWN = ("delta_crdt", "capacity", "grown")  # measurements: capacity, replica_capacity
+SYNC_ROUND = ("delta_crdt", "sync", "round")  # measurements: duration_s, buckets, entries; metadata: name, plane
+
+_lock = threading.Lock()
+#: event -> handler tuple. Handler tables are REPLACED, never mutated
+#: in place (copy-on-write under ``_lock``), so ``execute`` can iterate
+#: the tuple it read without copying it first — one hot-path
+#: allocation per event gone, and a concurrent attach/detach never
+#: mutates a tuple an ``execute`` is mid-iteration over.
+_handlers: dict[tuple, tuple[Callable, ...]] = defaultdict(tuple)
+
+
+def attach(event: tuple, handler: Callable[[tuple, dict, dict], None]) -> None:
+    with _lock:
+        _handlers[event] = _handlers[event] + (handler,)
+
+
+def detach(event: tuple, handler: Callable) -> None:
+    with _lock:
+        table = _handlers.get(event, ())
+        if handler in table:
+            i = table.index(handler)  # first occurrence, like list.remove
+            _handlers[event] = table[:i] + table[i + 1:]
+
+
+def has_handlers(event: tuple) -> bool:
+    with _lock:
+        return bool(_handlers.get(event))
+
+
+def execute(event: tuple, measurements: dict, metadata: dict) -> None:
+    with _lock:
+        handlers = _handlers.get(event, ())
+    for h in handlers:
+        h(event, measurements, metadata)

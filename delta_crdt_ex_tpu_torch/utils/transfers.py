@@ -1,0 +1,115 @@
+"""Device↔host transfer ledger — the PyTorch port's minimal copy of
+``delta_crdt_ex_tpu/utils/transfers.py``.
+
+Every crossing on the replica paths goes through an audited site
+(:func:`register` returns a :class:`TransferSite` whose :meth:`get`
+copies a tree of tensors to host numpy), and the ledger counts
+crossings and bytes per site label, so the port's crossings stay
+counted exactly where the JAX package counts them. Telemetry export
+and the ``/varz`` envelope wait for the observability slice.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+
+import numpy as np
+import torch
+
+_lock = threading.Lock()
+#: site label -> TransferSite (insertion = module import order)
+_sites: dict[str, "TransferSite"] = {}
+
+
+def _map(fn, value):
+    """Apply ``fn`` to every tensor leaf of a tuple/list/dict tree
+    (NamedTuples keep their type); other leaves pass through."""
+    if isinstance(value, torch.Tensor):
+        return fn(value)
+    if isinstance(value, tuple):
+        out = [_map(fn, v) for v in value]
+        return type(value)(*out) if hasattr(value, "_fields") else tuple(out)
+    if isinstance(value, list):
+        return [_map(fn, v) for v in value]
+    if isinstance(value, dict):
+        return {k: _map(fn, v) for k, v in value.items()}
+    return value
+
+
+def _nbytes(value) -> int:
+    total = 0
+
+    def count(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    _map(count, value)
+    return total
+
+
+class TransferSite:
+    """One audited crossing site: a label, the registering call site,
+    and the running (crossings, bytes) tally."""
+
+    __slots__ = ("label", "origin", "count", "bytes")
+
+    def __init__(self, label: str, origin: tuple) -> None:
+        self.label = label
+        self.origin = origin
+        self.count = 0
+        self.bytes = 0
+
+    def note(self, n_bytes: int, crossings: int = 1) -> None:
+        with _lock:
+            self.count += crossings
+            self.bytes += int(n_bytes)
+
+    def get(self, value):
+        """Audited device→host copy: one counted crossing for the whole
+        tree; every tensor leaf becomes a numpy array of its own dtype
+        (host leaves pass through)."""
+        self.note(_nbytes(value))
+        return _map(lambda t: t.detach().cpu().numpy(), value)
+
+
+def register(label: str) -> TransferSite:
+    """Register ``label`` and return its :class:`TransferSite` handle.
+    The same label from the same file:line returns the existing handle
+    (module reload); from a different call site it raises."""
+    if not isinstance(label, str) or not label:
+        raise ValueError(f"transfer site label must be a non-empty str, got {label!r}")
+    frame = sys._getframe(1)
+    origin = (frame.f_code.co_filename, frame.f_lineno)
+    with _lock:
+        prior = _sites.get(label)
+        if prior is not None:
+            if prior.origin != origin:
+                raise ValueError(
+                    f"transfers: site label {label!r} already registered at "
+                    f"{prior.origin[0]}:{prior.origin[1]}"
+                )
+            return prior
+        site = _sites[label] = TransferSite(label, origin)
+        return site
+
+
+def snapshot() -> dict:
+    """``{label: {"count": crossings, "bytes": bytes_moved}}`` for every
+    registered site, in sorted label order."""
+    with _lock:
+        return {
+            label: {"count": s.count, "bytes": s.bytes}
+            for label, s in sorted(_sites.items())
+        }
+
+
+def as_u64(a: np.ndarray) -> np.ndarray:
+    """Host view of an int64 bit-pattern column as the uint64 it holds."""
+    return np.asarray(a).view(np.uint64)
+
+
+def as_u32(a: np.ndarray) -> np.ndarray:
+    """Host copy of an int64 column holding uint32 values."""
+    return np.asarray(a).astype(np.uint32)
