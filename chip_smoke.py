@@ -2,19 +2,23 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-4
+    python3 chip_smoke.py                 # the full run: phases 1-6
     python3 chip_smoke.py --keys 131072   # phase 3 at a cut key count
 
 Phases (each raises on failure; any failure exits nonzero):
 
-1. build the port's CUDA kernel from ``delta_crdt_ex_tpu_torch/csrc/``
-   and print the card's name and power limit;
-2. kernel vs plain version on the card: the probe-window lookup kernel
-   against ``probe_lookup_ref`` on seeded tables (H ∈ {256, 2^21},
+1. build the port's CUDA kernels from ``delta_crdt_ex_tpu_torch/csrc/``
+   (one ``nvcc`` per source, started together) and print each one's
+   ptxas lines, the card's name and its power limit;
+2. kernels vs plain versions on the card: the probe-window lookup
+   kernel against ``probe_lookup_ref`` on seeded tables (H ∈ {256, 2^21},
    W ∈ {8, 32, 128, 256}, Q ∈ {8, 2048, 4096, 2^20 − 3}; missing keys,
    end-of-table windows, dead lanes, several live dots of one key,
-   top-bit keys and gids), the whole int32 grid bit-equal; then the
-   kernel's time, the plain version's time and the memory bound;
+   top-bit keys and gids), the whole int32 grid bit-equal; the roots
+   kernel against ``batched_roots_ref`` at N ∈ {1, 11, 64, 4096} ×
+   L ∈ {1, 2, 128, 2^14, 2^20} (but N·L ≤ 2^28), top-bit leaves, every
+   root bit-equal, swapped siblings changing the root; then each
+   kernel's time, its plain version's time and its memory bound;
 3. the slice at full size: two threaded replicas on ``cuda``
    (``store="hash"``, sync_interval 20 ms, max_sync_size 500, an
    ``on_diffs`` subscriber each) — ``mutate_batch`` of ``--keys`` keys
@@ -26,7 +30,28 @@ Phases (each raises on failure; any failure exits nonzero):
    final table (every written key, the removed ones and missing keys),
    the whole int32 grid bit-equal;
 4. a small deterministic script (``threaded=False``, ``LogicalClock``)
-   on ``cuda`` and on ``cpu`` gives identical ``canonical_state_bytes()``.
+   on ``cuda`` and on ``cpu`` gives identical ``canonical_state_bytes()``;
+   the fan-in of phase 5 at ``bench.py``'s smoke geometry (4096 keys,
+   L = 2^8, B = 64, 4 neighbours, 4 × 128-entry deltas per call, 1 + 2
+   calls) gives identical stack columns and roots on both;
+5. the fan-in at full size (``bench.py``'s north star, column layout):
+   ``build_state`` over 1,000,000 seeded keys (L = 2^14, B = 128, R = 8)
+   broadcast to 64 neighbours, then 1 warm-up and 6 timed calls of
+   ``fanout_merge(stack, slice, kill_budget=8, max_inserts=8192)`` and
+   ``batched_roots(stack.leaf)`` over 16 × 512-entry interval deltas —
+   merges/s as ``bench.py`` computes it (from per-call completion
+   intervals, stamped here by CUDA events), per-call device and host
+   enqueue times, the roots kernel's launches (exactly 7) and the
+   device memory after set-up and at its peak; it checks
+   every flag and count, every lane's alive count, the 64 lanes
+   bit-equal, the incremental leaf against ``compact_rows``, the alive
+   key set against the host's, and the final roots against
+   ``batched_roots_ref``;
+6. ring gossip: 8 lanes of that geometry, each first given its own
+   writer's 4096 fresh keys by ``merge_into``, then 7
+   ``ring_gossip_round``s, each followed by the roots; every root and
+   every leaf equal at the end, and every lane's content (alive entries
+   and context over global writer ids) equal.
 
 Metrics print on their own lines; the line before the last is the
 kernel table as JSON, the last line is the device record. The script
@@ -72,11 +97,13 @@ def phase_build() -> None:
     from delta_crdt_ex_tpu_torch.utils import kernels
 
     t0 = time.perf_counter()
-    path, out = kernels.build("probe", verbose=True)
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"[build]   {line.strip()}")
-    log(f"[build] probe: {path.name} built in {time.perf_counter() - t0:.3f} s")
+    built = kernels.build_all(verbose=True)
+    for name, (path, out) in built.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"[build]   {name}: {line.strip()}")
+        log(f"[build] {name}: {path.name}")
+    log(f"[build] {len(built)} kernels built in {time.perf_counter() - t0:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +292,87 @@ def phase_kernel_vs_plain(device_name: str) -> dict:
         "bound_ms": bound,
         "bound_by": "bytes",
         # no single PyTorch call computes the probe grid
+        "library_ms": None,
+    }
+
+
+def roots_bound_ms(n: int, L: int) -> float:
+    """Least time of the roots fold: N·L int64 leaves read once and N
+    int64 roots written, at 3.35 TB/s."""
+    return (n * L * 8 + n * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def random_leaves(n: int, L: int, seed: int):
+    """int64[n, L] uint32 values on the card, half with the top bit set."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 2**32, (n, L), dtype=torch.int64, device="cuda", generator=g)
+
+
+def phase_roots_vs_plain(device_name: str) -> dict:
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel, batched_roots_ref
+
+    max_err = 0
+    shapes = 0
+    for n in (1, 11, 64, 4096):
+        for L in (1, 2, 128, 1 << 14, 1 << 20):
+            if n * L > 1 << 28:  # 2 GiB of leaves: the plain fold's temporaries would not fit
+                continue
+            leaf = random_leaves(n, L, seed=n * 31 + L)
+            got = batched_roots_kernel(leaf)
+            want = batched_roots_ref(leaf)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            max_err = max(max_err, err)
+            top = int((leaf >= 2**31).sum())
+            log(f"[kernel] roots N={n} L={L}: {top} top-bit leaves, max_abs_err {err}")
+            if err != 0:
+                bad = torch.nonzero(got != want)[:4, 0]
+                raise AssertionError(
+                    f"roots kernel disagrees with batched_roots_ref at N={n} L={L}: rows "
+                    f"{bad.tolist()}: kernel {got[bad].tolist()} plain {want[bad].tolist()}"
+                )
+            shapes += 1
+    for L in (2, 128, 1 << 14):
+        leaf = torch.zeros((2, L), dtype=torch.int64, device="cuda")
+        leaf[0, 0] = leaf[1, 1] = 0xDEADBEEF
+        r = batched_roots_kernel(leaf)
+        if int(r[0]) == int(r[1]) or not torch.equal(r, batched_roots_ref(leaf)):
+            raise AssertionError(f"roots kernel: swapped siblings at L={L} give roots {r.tolist()}")
+    log(f"[kernel] roots: {shapes} shapes bit-equal, swapped siblings change the root; max_abs_err {max_err}")
+
+    scratch = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")  # 128 MiB > L2
+    flush = lambda: scratch.random_(0, 255)
+    out = {}
+    for n in (64, 4096):  # the fan-in's stack, and a wide batch
+        L = 1 << 14
+        leaf = random_leaves(n, L, seed=7 + n)
+        kern = time_ms(lambda: batched_roots_kernel(leaf), 20, flush)
+        plain = time_ms(lambda: batched_roots_ref(leaf), 20, flush)
+        bound = roots_bound_ms(n, L)
+        log(
+            f"[kernel-time] batched_roots N={n} L={L} (L2 flushed between calls): kernel "
+            f"{kern:.6f} ms, plain {plain:.6f} ms, bound {bound:.6f} ms ({n * L * 8 + n * 8} B at "
+            f"3.35 TB/s), kernel/bound {kern / bound:.3f} on {device_name}"
+        )
+        out[n] = (kern, plain, bound)
+    kern, plain, bound = out[64]
+    batched_roots_kernel.launches = 0  # comparison launches do not count
+    return {
+        "name": batched_roots_kernel.name,
+        "route": "cuda",
+        "source": batched_roots_kernel.source,
+        "replaces": batched_roots_kernel.replaces,
+        "launches": 0,
+        "max_abs_err": max_err,
+        "ms": kern,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        # no single PyTorch call computes the digest-tree fold
         "library_ms": None,
     }
 
@@ -487,6 +595,308 @@ def phase_cuda_vs_cpu() -> None:
         raise AssertionError("cuda and cpu runs of the deterministic script differ")
     log(f"[det] cuda and cpu canonical state + diff feed identical ({len(a)} B)")
 
+    from delta_crdt_ex_tpu_torch.models.binned import to_numpy
+
+    runs = {dev: run_fanin(FANIN_SMOKE, dev, keep_states=True) for dev in ("cuda", "cpu")}
+    calls = 0
+    for (sa, ra), (sb, rb) in zip(runs["cuda"]["per_call"], runs["cpu"]["per_call"]):
+        ca, cb = to_numpy(sa), to_numpy(sb)
+        for c in ca:
+            if not np.array_equal(ca[c], cb[c]):
+                raise AssertionError(f"fan-in call {calls}: column {c} differs between cuda and cpu")
+        if not np.array_equal(ra.cpu().numpy(), rb.numpy()):
+            raise AssertionError(f"fan-in call {calls}: roots differ between cuda and cpu")
+        calls += 1
+    log(f"[det] fan-in at the smoke geometry: {calls} calls, stack columns and roots identical on cuda and cpu")
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: the fan-in (bench.py's north star, column layout)
+
+#: ``bench.py``'s full geometry (N_KEYS, TREE_DEPTH, BIN_CAP, RCAP,
+#: NEIGHBOURS, DELTA, GROUP, CALLS, WARMUP_CALLS, the delta bin width)
+FANIN_FULL = dict(keys=1_000_000, L=1 << 14, B=128, R=8, N=64, delta=512, group=16,
+                  calls=6, warmup=1, bin_width=8)
+#: ``bench.py``'s ``BENCH_SMOKE`` geometry
+FANIN_SMOKE = dict(keys=4096, L=1 << 8, B=64, R=8, N=4, delta=128, group=4,
+                   calls=2, warmup=1, bin_width=16)
+
+
+def call_stats(dts: list, per_call: int) -> dict:
+    """``bench.py``'s summary of per-call completion intervals: sub-5 ms
+    intervals coalesce into windows, the headline is the median window
+    rate."""
+    floor = 0.005
+    wins: list = []
+    acc_n, acc_dt = 0, 0.0
+    for d in dts:
+        acc_n += 1
+        acc_dt += d
+        if acc_dt >= floor:
+            wins.append((acc_n, acc_dt))
+            acc_n, acc_dt = 0, 0.0
+    if acc_n:
+        if wins:
+            n0, d0 = wins[-1]
+            wins[-1] = (n0 + acc_n, d0 + acc_dt)
+        else:
+            wins.append((acc_n, acc_dt))
+    rates = sorted(n * per_call / d for n, d in wins)
+    return {
+        "merges_per_sec": float(np.median(rates)),
+        "stat": f"median_of_{len(wins)}_call_windows",
+        "call_rate_min": rates[0],
+        "call_rate_max": rates[-1],
+    }
+
+
+def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
+    """``bench.py``'s fan-in on ``device``: a single-writer state over
+    ``geo["keys"]`` seeded keys broadcast to N neighbours, then
+    warm-up + timed calls, each one ``fanout_merge`` of a group of
+    interval deltas from a second writer and the stack's roots. The
+    timed calls are enqueued back to back and stamped as each one
+    completes, as ``bench.py`` does; on ``cuda`` the stamps are CUDA
+    events recorded after each call (the host stamps of ``bench.py``
+    would collapse here, because enqueueing a call takes the host most
+    of a call's device time). Returns the final stack, each call's
+    results, the per-call completion intervals and host enqueue times,
+    and the host copies of the keys."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import fanout_merge, stack_states
+    from delta_crdt_ex_tpu_torch.utils.synth import build_state, interval_delta_stream
+
+    L, n_calls = geo["L"], geo["warmup"] + geo["calls"]
+    rng = np.random.default_rng(0)  # bench.py make_workload(seed=0)
+    keys = rng.integers(1, 1 << 63, size=geo["keys"], dtype=np.uint64)
+    if len(np.unique(keys)) != len(keys):
+        raise AssertionError("seeded keys are not distinct")
+    t0 = time.perf_counter()
+    one, _ = build_state(11, keys, L, geo["B"], geo["R"], device=device)
+    stack = stack_states([one] * geo["N"])
+    next_ctr, slices = None, []
+    for _ in range(n_calls + 1):  # the last one is the traced call's
+        (sl,), next_ctr = interval_delta_stream(
+            22, rng, 1, geo["group"] * geo["delta"], L, next_ctr=next_ctr,
+            bin_width=geo["bin_width"], device=device,
+        )
+        slices.append(sl)
+    spare = slices.pop()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    setup_s = time.perf_counter() - t0
+    setup_bytes = torch.cuda.memory_allocated() if cuda else 0
+    delta_keys = np.concatenate([s.key[s.alive].cpu().numpy() for s in slices]).view(np.uint64)
+
+    def stamp():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    batched_roots_kernel.launches = 0  # the fan-in path's run starts here
+    per_call, marks, enqueue_s = [], [], []
+    t0 = time.perf_counter()
+    for i, sl in enumerate(slices):
+        if i == geo["warmup"]:
+            sync()
+            t0 = time.perf_counter()
+            marks.append(stamp())
+        t1 = time.perf_counter()
+        res = fanout_merge(stack, sl, 8, geo["group"] * geo["delta"])
+        stack = res.state
+        roots = batched_roots(stack.leaf)
+        # flags and counts only: a kept state would hold a whole stack
+        per_call.append((stack if keep_states else None, roots, res._replace(state=None)))
+        if i >= geo["warmup"]:
+            enqueue_s.append(time.perf_counter() - t1)
+            marks.append(stamp())
+    launches = batched_roots_kernel.launches
+    sync()
+    wall_s = time.perf_counter() - t0
+    if cuda:
+        call_dts = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    else:
+        call_dts = [b - a for a, b in zip(marks, marks[1:])]
+    return {
+        "stack": stack, "one": one, "keys": keys, "delta_keys": delta_keys, "slices": slices,
+        "spare": spare, "per_call": [(s, r) for s, r, _ in per_call], "results": [x for _, _, x in per_call],
+        "call_dts": call_dts, "enqueue_s": enqueue_s, "wall_s": wall_s, "launches": launches,
+        "setup_s": setup_s, "setup_bytes": setup_bytes,
+    }
+
+
+def phase_fanin(device_name: str) -> dict:
+    import torch
+
+    from delta_crdt_ex_tpu_torch.models.binned import COLUMNS, map_columns
+    from delta_crdt_ex_tpu_torch.ops.binned import compact_rows
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel, batched_roots_ref
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import fanout_merge
+
+    geo = FANIN_FULL
+    torch.cuda.reset_peak_memory_stats()
+    run = run_fanin(geo, "cuda")
+    stack = run["stack"]
+    m: dict = {"geometry": geo, "setup_s": run["setup_s"], "launches": run["launches"]}
+    m["call_ms"] = [d * 1e3 for d in run["call_dts"]]
+    m["enqueue_ms"] = [d * 1e3 for d in run["enqueue_s"]]
+    m.update(call_stats(run["call_dts"], geo["group"] * geo["N"]))
+    m["aggregate_merges_per_sec"] = geo["calls"] * geo["group"] * geo["N"] / run["wall_s"]
+    m["setup_mem_bytes"] = run["setup_bytes"]
+    m["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[fanin] {geo['keys']} keys, {geo['N']} neighbours, L={geo['L']} B={geo['B']}: set-up "
+        f"{run['setup_s']:.3f} s; {geo['calls']} timed calls of {geo['group']} x {geo['delta']}-entry "
+        f"deltas: per-call ms (device, CUDA events) {[round(x, 3) for x in m['call_ms']]}, host "
+        f"enqueue ms {[round(x, 3) for x in m['enqueue_ms']]}; merges/s {m['merges_per_sec']:.3f} "
+        f"({m['stat']}, min {m['call_rate_min']:.3f}, max {m['call_rate_max']:.3f}), aggregate "
+        f"{m['aggregate_merges_per_sec']:.3f}; memory after set-up {m['setup_mem_bytes']} B, peak "
+        f"{m['peak_mem_bytes']} B on {device_name}")
+
+    n_delta = geo["group"] * geo["delta"]
+    for i, res in enumerate(run["results"]):
+        flags = torch.stack([res.need_gid_grow, res.need_kill_tier, res.need_fill_compact,
+                             res.need_ctx_gap, res.need_ins_tier]).any(dim=1).tolist()
+        if not bool(res.ok.all()):
+            raise AssertionError(f"fan-in call {i}: merge overflow (gid/kill/fill/gap/ins) {flags}")
+        want = int(run["slices"][i].alive.sum())
+        if want != n_delta or not bool((res.n_inserted == want).all()) or bool(res.n_killed.any()):
+            raise AssertionError(f"fan-in call {i}: inserted {res.n_inserted.tolist()[:4]}..., "
+                                 f"killed {int(res.n_killed.sum())}, want {want} and 0")
+    alive = stack.alive.sum(dim=(1, 2))
+    want_alive = geo["keys"] + (geo["warmup"] + geo["calls"]) * n_delta
+    if not bool((alive == want_alive).all()):
+        raise AssertionError(f"lane alive counts {alive.unique().tolist()}, want {want_alive}")
+    for c in COLUMNS:
+        col = getattr(stack, c)
+        if not bool((col == col[:1]).all()):
+            raise AssertionError(f"fan-in lanes differ in column {c}")
+    lane0 = map_columns(lambda x: x[0], stack)
+    if not torch.equal(compact_rows(lane0).leaf, lane0.leaf):
+        raise AssertionError("lane 0's incremental leaf digests differ from compact_rows'")
+    got_keys = np.sort(lane0.key[lane0.alive].cpu().numpy().view(np.uint64))
+    if not np.array_equal(got_keys, np.sort(np.concatenate([run["keys"], run["delta_keys"]]))):
+        raise AssertionError("lane 0's alive key set is not base ∪ deltas")
+    if m["launches"] != geo["warmup"] + geo["calls"]:
+        raise AssertionError(f"roots kernel launched {m['launches']} times on the fan-in, want "
+                             f"{geo['warmup'] + geo['calls']}")
+    # launches below compare the kernel with its plain version
+    got = batched_roots_kernel(stack.leaf)
+    want = batched_roots_ref(stack.leaf)
+    m["roots_max_abs_err"] = int((got - want).abs().max())
+    if m["roots_max_abs_err"] != 0:
+        raise AssertionError("roots kernel disagrees with batched_roots_ref on the final stack")
+    log(f"[fanin] checks: every ok, {n_delta} inserted and 0 killed per lane and call, {want_alive} "
+        f"alive per lane, {geo['N']} lanes bit-equal, leaf == compact_rows(lane 0).leaf, alive keys == "
+        f"base ∪ deltas; roots kernel launches on the fan-in {m['launches']}, final roots "
+        f"bit-equal to batched_roots_ref")
+    # one more call, on the next delta group, under the profiler: where a
+    # call's device time goes (its result is dropped)
+    m["trace"] = trace_call(
+        lambda: batched_roots(fanout_merge(stack, run["spare"], 8, n_delta).state.leaf)
+    )
+    log(f"[fanin-trace] one call: wall {m['trace']['wall_ms']:.3f} ms, device busy "
+        f"{m['trace']['busy_ms']:.3f} ms (idle share {m['trace']['idle_share']:.4f}); device ms "
+        f"by op: {[(k, round(v, 3)) for k, v in m['trace']['ops']]}")
+    m["base"] = run["one"]
+    return m
+
+
+def trace_call(fn, top: int = 10) -> dict:
+    """One ``fn()`` under ``torch.profiler``: its wall time, the device
+    time of its kernels (a single stream, so their sum is the busy
+    time), the device idle share ``1 - busy / wall``, and the ``top``
+    torch ops by the device time of the kernels each launched itself."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time for the traced call")
+    ops = sorted(
+        ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+         if e.key.startswith("aten::") and e.self_device_time_total > 0),
+        key=lambda kv: -kv[1],
+    )
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms, "ops": ops[:top]}
+
+
+def canonical_lanes(stack) -> list:
+    """Each lane's content over global writer ids, on the host: alive
+    entries as sorted (key, writer gid, ctr, ts, valh) rows and the
+    context as sorted (bucket, writer gid, max counter) rows."""
+    from delta_crdt_ex_tpu_torch.models.binned import map_columns, to_numpy
+
+    out = []
+    for i in range(stack.key.shape[0]):
+        c = to_numpy(map_columns(lambda x: x[i], stack))
+        a = c["alive"]
+        ent = np.stack([c["key"][a], c["ctx_gid"][c["node"][a]], c["ctr"][a].astype(np.uint64),
+                        c["ts"][a].view(np.uint64), c["valh"][a].astype(np.uint64)])
+        ent = ent[:, np.lexsort(ent[::-1])]
+        b, r = np.nonzero(c["ctx_max"])
+        ctx = np.stack([b.astype(np.uint64), c["ctx_gid"][r], c["ctx_max"][b, r].astype(np.uint64)])
+        out.append((ent, ctx[:, np.lexsort(ctx[::-1])]))
+    return out
+
+
+def phase_ring_gossip(base) -> dict:
+    import torch
+
+    from delta_crdt_ex_tpu_torch.models.binned_map import merge_into
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import ring_gossip_round, stack_states
+    from delta_crdt_ex_tpu_torch.utils.synth import interval_delta_stream
+
+    n, fresh = 8, 4096
+    L = base.num_buckets
+    rng = np.random.default_rng(6)
+    base = base.grow(replica_capacity=16)  # the base writer + 8 lane writers
+    lanes = []
+    for i in range(n):
+        (sl,), _ = interval_delta_stream(100 + i, rng, 1, fresh, L, bin_width=8, device="cuda")
+        lane, res = merge_into(base, sl, n_alive=fresh)
+        if int(res.n_inserted) != fresh:
+            raise AssertionError(f"lane {i}: merge_into inserted {int(res.n_inserted)}, want {fresh}")
+        lanes.append(lane)
+    stack = stack_states(lanes)
+    torch.cuda.synchronize()
+    batched_roots_kernel.launches = 0  # the gossip path's run starts here
+    t0 = time.perf_counter()
+    for r in range(n - 1):
+        res = ring_gossip_round(stack)
+        if not bool(res.ok.all()):
+            raise AssertionError(f"ring gossip round {r}: merge overflow")
+        stack = res.state
+        roots = batched_roots(stack.leaf)
+    torch.cuda.synchronize()
+    m = {"lanes": n, "rounds": n - 1, "round_ms": (time.perf_counter() - t0) / (n - 1) * 1e3,
+         "launches": batched_roots_kernel.launches}
+    if not bool((roots == roots[0]).all()) or not bool((stack.leaf == stack.leaf[:1]).all()):
+        raise AssertionError(f"ring gossip: roots differ after {n - 1} rounds: {roots.tolist()}")
+    views = canonical_lanes(stack)
+    for i, (ent, ctx) in enumerate(views):
+        if not (np.array_equal(ent, views[0][0]) and np.array_equal(ctx, views[0][1])):
+            raise AssertionError(f"ring gossip: lane {i}'s content differs from lane 0's")
+    want = int(base.alive.sum()) + n * fresh
+    if views[0][0].shape[1] != want:
+        raise AssertionError(f"ring gossip: {views[0][0].shape[1]} alive entries, want {want}")
+    log(f"[gossip] {n} lanes x {n - 1} ring_gossip_rounds ({m['round_ms']:.3f} ms a round with "
+        f"its roots): roots and leaves equal, every lane's {want} entries and context equal; "
+        f"roots kernel launches on this path {m['launches']}")
+    return m
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -518,14 +928,21 @@ def main() -> int:
     log(f"[env] card: {name_power}")
     phase_build()
     probe = phase_kernel_vs_plain(name_power)
+    roots = phase_roots_vs_plain(name_power)
     m = phase_slice(args.keys)
     log("[slice-metrics] " + json.dumps(m))
     probe["launches"] = m["launches"]
     probe["max_abs_err"] = max(probe["max_abs_err"], m["table_max_abs_err"])
     phase_cuda_vs_cpu()
+    f = phase_fanin(name_power)
+    g = phase_ring_gossip(f.pop("base"))
+    log("[fanin-metrics] " + json.dumps(f))
+    log("[gossip-metrics] " + json.dumps(g))
+    roots["launches"] = f["launches"]
+    roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
     log(f"[env] total {time.perf_counter() - t_start:.3f} s")
     print(name_power, flush=True)
-    print(json.dumps({"kernels": [probe]}), flush=True)
+    print(json.dumps({"kernels": [probe, roots]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,21 +1,31 @@
-"""The model-seam helpers the hash store shares with the binned model —
-the part of ``delta_crdt_ex_tpu/models/binned_map.py`` this slice runs:
-batch grouping, the delta-interval gap error, and the wire fan-in that
-combines several EntriesMsg bodies into one slice. ``BinnedAWLWWMap``
-and the binned merge paths wait for the binned-store slice.
+"""The model seam of the binned store — the part of
+``delta_crdt_ex_tpu/models/binned_map.py`` the port runs so far: batch
+grouping, the delta-interval gap error, the wire fan-in that combines
+several EntriesMsg bodies into one slice, and the host's merge loops
+(:func:`tier_retry_merge`, :func:`merge_into`, :func:`merge_rows_into`)
+that own the growth policy. ``BinnedAWLWWMap``/``AWSet`` come with the
+binned replica slice (``ROADMAP.md``).
 
 Batch grouping and the fan-in stay host numpy (they shape the wire and
 the kernel inputs exactly as the JAX package does); the combined slice
-lands on the caller's torch device.
+lands on the caller's torch device. Each merge loop reads the flags it
+branches on with one device-to-host copy per attempt.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import pow2_tier as _pow2, pow4_tier as _pow4
+from delta_crdt_ex_tpu_torch.models.binned import BinnedStore, pow2_tier as _pow2, pow4_tier as _pow4
 from delta_crdt_ex_tpu_torch.ops.apply import OP_PAD
-from delta_crdt_ex_tpu_torch.ops.binned import RowSlice, slice_from_wire
+from delta_crdt_ex_tpu_torch.ops.binned import (
+    RowSlice,
+    compact_rows,
+    merge_rows,
+    merge_slice,
+    slice_from_wire,
+)
 
 
 class GroupedBatch:
@@ -100,6 +110,101 @@ class CtxGapError(ValueError):
 
     gap_rows = None  # numpy bool[U] from the row-granular kernel
     gapped_members: "set[int] | None" = None  # member indices of a grouped merge
+
+
+def tier_retry_merge(
+    state: BinnedStore,
+    sl: RowSlice,
+    merge,
+    compact,
+    kill_budget: int,
+    max_inserts: int,
+    on_grow=None,
+):
+    """The tier-escalation policy shared by the single-state and the
+    neighbour-stack merge paths (``binned_map.py:127``): run
+    ``merge(state, sl, kill_budget, max_inserts)``, and on overflow grow
+    the offending tier and retry on the PRE-merge state — gid table ×2,
+    kill budget ×4 (capped at the slice's row count), insert tier ×4
+    (capped at the slice grid), and for fill overflow one compact first,
+    then bin capacity ×2. Flags of a stack reduce with any/all, so one
+    overflowing neighbour retiers the whole stack.
+
+    Returns ``(new_state, last_result, n_retries)``; raises
+    :class:`CtxGapError` on a non-contiguous delta-interval."""
+    compacted = False
+    retries = 0
+    mi = max_inserts
+    while True:
+        res = merge(state, sl, kill_budget, mi)
+        ok, gap, gid, kill, ins, fill = torch.stack([
+            res.ok.all(), res.need_ctx_gap.any(), res.need_gid_grow.any(),
+            res.need_kill_tier.any(), res.need_ins_tier.any(), res.need_fill_compact.any(),
+        ]).tolist()  # one device sync for every branch below
+        if ok:
+            return res.state, res, retries
+        retries += 1
+        if gap:
+            raise CtxGapError(_CTX_GAP_MSG)
+        if gid:
+            state = state.grow(replica_capacity=state.replica_capacity * 2)
+            if on_grow:
+                on_grow(state)
+        if kill:
+            kill_budget = min(kill_budget * 4, int(sl.rows.shape[0]))
+        if ins:
+            mi = min(mi * 4, int(sl.alive.numel()))
+        if fill:
+            if not compacted:
+                state = compact(state)
+                compacted = True
+            else:
+                state = state.grow(bin_capacity=state.bin_capacity * 2)
+                if on_grow:
+                    on_grow(state)
+
+
+def merge_rows_into(state: BinnedStore, sl: RowSlice, on_grow=None):
+    """Merge a RowSlice through the row-granular kernel
+    (:func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_rows`), growing the
+    gid table or the bins on overflow (``binned_map.py:184``). Returns
+    ``(new_state, last_result)``; raises :class:`CtxGapError` (with
+    ``gap_rows``) on a non-contiguous delta-interval."""
+    while True:
+        res = merge_rows(state, sl)
+        ok, gap, gid, fill = torch.stack(
+            [res.ok, res.need_ctx_gap, res.need_gid_grow, res.need_fill_grow]
+        ).tolist()
+        if ok:
+            return res.state, res
+        if gap:
+            err = CtxGapError(_CTX_GAP_MSG)
+            err.gap_rows = res.gap_row.cpu().numpy()
+            raise err
+        if gid:
+            state = state.grow(replica_capacity=state.replica_capacity * 2)
+            if on_grow:
+                on_grow(state)
+        if fill:
+            state = state.grow(bin_capacity=state.bin_capacity * 2)
+            if on_grow:
+                on_grow(state)
+
+
+def merge_into(
+    state: BinnedStore, sl: RowSlice, kill_budget: int = 16, on_grow=None, n_alive: int | None = None
+):
+    """Merge a RowSlice into one state through :func:`tier_retry_merge`
+    over the element-scatter kernel (``binned_map.py:443``), the insert
+    tier starting at the ×4 wire tier of the slice's alive count (pass
+    ``n_alive`` when the host knows it, to skip a device read). Returns
+    ``(new_state, last_result)``."""
+    if n_alive is None:
+        n_alive = int(sl.alive.sum())
+    new_state, res, _ = tier_retry_merge(
+        state, sl, merge_slice, compact_rows, kill_budget, _pow4(max(n_alive, 1)), on_grow=on_grow
+    )
+    return new_state, res
 
 
 #: entry columns of the EntriesMsg wire dict, in RowSlice order

@@ -1,10 +1,34 @@
-"""Primitives the hash store shares with the bucket-binned engine — the
-part of ``delta_crdt_ex_tpu/ops/binned.py`` this slice runs, as torch
-ops: the mixers and the entry hash, the digest-tree fold, the wire
-slice (:class:`RowSlice`), the interval/insert preamble every merge
-shares (:func:`_slice_view`), and the LWW winner cores. The binned row
-kernels (``row_apply``, ``merge_rows``, ``merge_slice``, …) wait for the
-binned-store slice.
+"""Row-local ops over the bucket-binned dot store — the PyTorch port of
+``delta_crdt_ex_tpu/ops/binned.py``, as torch ops:
+
+- the primitives the hash store shares: the mixers and the entry hash,
+  the digest-tree fold, the wire slice (:class:`RowSlice`), the
+  interval/insert preamble every merge shares (:func:`_slice_view`),
+  and the LWW winner cores;
+- the bulk fan-in path's store ops: :func:`merge_slice` (the
+  element-scatter merge, both its uncompacted and its ``top_k``
+  compacted branch), :func:`merge_rows` and :func:`extract_rows` (the
+  row-granular pair ring gossip uses), :func:`compact_rows`,
+  :func:`init_from_columns` and :func:`flagged_first_order`.
+
+The local-mutation and read ops of the binned replica (``row_apply``,
+``clear_all``, ``extract_own_delta``, ``winners_for_keys``,
+``winner_all``, ``winner_rows``) are the next slice (``ROADMAP.md``).
+
+The neighbour axis. The JAX package batches neighbours with
+``jax.vmap``; here every store op takes a :class:`BinnedStore` whose
+columns have a leading lane axis (``[N, L, B]``) as well as a single
+state, and a slice that is either shared by every lane (``[U, S]``) or
+one per lane (``[N, U, S]``). A single state runs as one lane, so a
+lane of a stacked merge and a solo merge are the same arithmetic.
+
+No op writes into its inputs. A merge that reports ``ok=False`` is
+re-run by the host on the pre-merge state (``tier_retry_merge``), so
+each scatter goes into a fresh copy: one extra element per lane takes
+the writes that the JAX package drops (``mode="drop"``) and is cut off.
+Scatters with repeated indices write one value, or reduce with an
+order-free reduction (``amin``, ``amax``, integer ``scatter_add_``), so
+no result depends on the order CUDA applies them in.
 
 Integer layout. This torch build has no shift, add, compare, max or
 scatter on ``uint32``/``uint64``, so the port holds
@@ -22,12 +46,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import U32_MAX
-from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, merge_gid_tables
+from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore, map_columns
+from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
 
+_LONG = torch.int64
 M32 = 0xFFFFFFFF
 #: int64 with only the sign bit set: ``x ^ SIGN`` maps the unsigned
 #: order of a uint64 bit pattern onto the signed order
@@ -79,12 +106,13 @@ def entry_hash(key, gid, ctr, ts, valh) -> torch.Tensor:
 
 def tree_from_leaves(leaf: torch.Tensor) -> list[torch.Tensor]:
     """Digest-tree levels from the maintained leaf digests, root first:
-    ``[u32[1], u32[2], …, u32[L]]`` (``ops/binned.py:83``)."""
+    ``[u32[1], u32[2], …, u32[L]]`` (``ops/binned.py:83``); leading axes
+    are batch axes (one tree per row of an ``[N, L]`` leaf stack)."""
     levels = [leaf]
-    while levels[-1].shape[0] > 1:
-        cur = levels[-1].reshape(-1, 2)
-        left = _mix32(cur[:, 0] ^ _P1)
-        right = _mix32(cur[:, 1] ^ _P2)
+    while levels[-1].shape[-1] > 1:
+        cur = levels[-1].reshape(*leaf.shape[:-1], -1, 2)
+        left = _mix32(cur[..., 0] ^ _P1)
+        right = _mix32(cur[..., 1] ^ _P2)
         levels.append((left + (right << 1) + 0x9E3779B9) & M32)
     return levels[::-1]
 
@@ -94,11 +122,6 @@ def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     The JAX package unrolls this into selects for the TPU; a gather is
     the same function."""
     return table[idx.to(torch.int64)]
-
-
-def _row_table_lookup(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``tbl[u, idx[u, s]]`` (``idx`` clipped to ``[0, R)``)."""
-    return torch.gather(tbl, 1, idx.to(torch.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +196,8 @@ def wire_from_host(host: dict) -> dict:
 
 class SliceView(NamedTuple):
     """The interval/insert preamble shared by every merge kernel
-    (``ops/binned.py:440``)."""
+    (``ops/binned.py:440``). Shapes of one lane; the lane-batched form
+    has a leading ``N`` on every field."""
 
     valid: torch.Tensor  # bool[U]
     rows_safe: torch.Tensor  # int64[U] (L where padding — scatters drop)
@@ -190,45 +214,124 @@ class SliceView(NamedTuple):
     nonempty: torch.Tensor  # bool[U, Rr]
 
 
-def _slice_view(state, sl: RowSlice) -> SliceView:
-    """``ops/binned.py:462``: remote context rows re-expressed in local
-    slots, the insert mask, and delta-interval gap detection."""
-    L = state.num_buckets
-    R = state.replica_capacity
-    dev = sl.key.device
+# ---------------------------------------------------------------------------
+# the lane axis
+
+
+def _lanes(n: int, device) -> torch.Tensor:
+    """int64[N, 1] lane index, for ``col[lanes, rows]`` row gathers."""
+    return torch.arange(n, device=device)[:, None]
+
+
+def _lane_slice(sl: RowSlice, n: int) -> RowSlice:
+    """``sl`` with a leading lane axis: a shared slice is broadcast (a
+    view), a per-lane slice (``key`` is ``[N, U, S]``) passes."""
+    if sl.key.dim() == 3:
+        return sl
+    return RowSlice(*(c.expand(n, *c.shape) for c in sl))
+
+
+def _with_lanes(state: BinnedStore) -> tuple[BinnedStore, bool]:
+    """``(state with a lane axis, whether one was added)``."""
+    if state.key.dim() == 3:
+        return state, False
+    return map_columns(lambda t: t.unsqueeze(0), state), True
+
+
+def _lane0(x):
+    """Lane 0 of a lane-batched result (a store, a NamedTuple of
+    tensors and stores, or a tensor)."""
+    if isinstance(x, BinnedStore):
+        return map_columns(lambda t: t[0], x)
+    if isinstance(x, tuple):
+        return type(x)(*(_lane0(f) for f in x))
+    return x[0]
+
+
+def _ext(col: torch.Tensor) -> torch.Tensor:
+    """``[N, numel + 1]`` copy of a lane-batched column: lane n's
+    elements flattened, then one sentinel element that takes the writes
+    the JAX package drops (``mode="drop"``)."""
+    n = col.shape[0]
+    m = col[0].numel()
+    out = col.new_empty((n, m + 1))
+    out[:, :m] = col.reshape(n, m)
+    return out
+
+
+def _unext(ext: torch.Tensor, shape, contiguous: bool = False) -> torch.Tensor:
+    """The column back from :func:`_ext`, sentinel cut off (a view,
+    unless ``contiguous``)."""
+    cut = ext[:, :-1]
+    return cut.contiguous().view(shape) if contiguous else cut.view(shape)
+
+
+def _set_rows(
+    col: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor, contiguous: bool = False
+) -> torch.Tensor:
+    """``col.at[rows].set(vals, mode="drop")`` per lane, out of place:
+    ``col`` is ``[N, L, ...]``, ``rows`` ``[N, U]`` (``L`` drops),
+    ``vals`` ``[N, U, ...]``."""
+    n, L = col.shape[:2]
+    w = col[0, 0].numel()
+    e = _ext(col)
+    idx = torch.where(
+        (rows < L)[..., None], rows[..., None] * w + torch.arange(w, device=col.device), L * w
+    )
+    e.scatter_(1, idx.reshape(n, -1), vals.reshape(n, -1).to(col.dtype))
+    return _unext(e, col.shape, contiguous)
+
+
+def _slice_view_b(ctx_gid: torch.Tensor, ctx_max: torch.Tensor, sl: RowSlice) -> SliceView:
+    """:class:`SliceView` of every lane (``ops/binned.py:462``): remote
+    context rows re-expressed in local slots, the insert mask, and
+    delta-interval gap detection. ``ctx_gid`` is ``[N, R]``, ``ctx_max``
+    ``[N, L, R]`` and ``sl`` lane-batched (:func:`_lane_slice`)."""
+    n, L, R = ctx_max.shape
+    dev = ctx_max.device
+    u = sl.node.shape[-2]
+    rr = sl.ctx_gid.shape[-1]
 
     valid = sl.rows >= 0
     rows_safe = torch.where(valid, sl.rows, L)
     rows_clip = rows_safe.clamp(0, L - 1)
 
-    gids = merge_gid_tables(state.ctx_gid, sl.ctx_gid)
+    gids = merge_gid_tables(ctx_gid, sl.ctx_gid)
 
     # empty intervals (lo == hi) claim nothing: mask them out of BOTH
     # bounds, or an idle writer's row would read as a (0, hi] claim
     nonempty = sl.ctx_rows > sl.ctx_lo
     # dense forms as a one-hot max/min over the Rr axis (remap < 0
     # matches no column)
-    oh = gids.remap[:, None] == torch.arange(R, device=dev)[None, :]
-    sel3 = nonempty[:, :, None] & oh[None]  # [U, Rr, R]
-    rdense = torch.where(sel3, sl.ctx_rows[:, :, None], 0).amax(dim=1)
-    ldense = torch.where(sel3, sl.ctx_lo[:, :, None], U32_MAX).amin(dim=1)
+    oh = gids.remap[..., :, None] == torch.arange(R, device=dev)
+    sel3 = nonempty[..., :, :, None] & oh[:, None]  # [N, U, Rr, R]
+    rdense = torch.where(sel3, sl.ctx_rows[..., None], 0).amax(dim=-2)
+    ldense = torch.where(sel3, sl.ctx_lo[..., None], U32_MAX).amin(dim=-2)
     # interval lower bounds in local slots (0 where nothing shipped)
     ldense = torch.where(ldense == U32_MAX, 0, ldense)
 
     # insert pass (s2 ∖ c1)
-    ln = _table_lookup(gids.remap, sl.node.clamp(0, sl.ctx_gid.shape[0] - 1))
+    remap_u = gids.remap[:, None, :].expand(n, u, rr)
+    ln = torch.gather(remap_u, -1, sl.node.clamp(0, rr - 1).to(_LONG))
     ln_clip = ln.clamp(0, R - 1)
-    local_ctx = state.ctx_max[rows_clip]  # [U, R]
-    covered_local = _row_table_lookup(local_ctx, ln_clip) >= sl.ctr
-    ins = sl.alive & valid[:, None] & ~covered_local & (ln >= 0)
+    local_ctx = ctx_max[_lanes(n, dev), rows_clip]  # [N, U, R]
+    covered_local = torch.gather(local_ctx, -1, ln_clip) >= sl.ctr
+    ins = sl.alive & valid[..., None] & ~covered_local & (ln >= 0)
     # delta-interval contiguity: advancing ctx to hi is only sound if our
     # context already reaches lo
-    gap_row = (valid[:, None] & (rdense > ldense) & (local_ctx < ldense)).any(dim=1)
-    need_ctx_gap = gap_row.any()
+    gap_row = (valid[..., None] & (rdense > ldense) & (local_ctx < ldense)).any(dim=-1)
+    need_ctx_gap = gap_row.any(dim=-1)
     return SliceView(
         valid, rows_safe, rows_clip, gids, rdense, ldense, ln, ln_clip,
         local_ctx, ins, need_ctx_gap, gap_row, nonempty,
     )
+
+
+def _slice_view(state, sl: RowSlice) -> SliceView:
+    """:class:`SliceView` of one state (a binned or a hash store) and a
+    slice of one lane."""
+    v = _slice_view_b(state.ctx_gid[None], state.ctx_max[None], _lane_slice(sl, 1))
+    return _lane0(v)
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +396,405 @@ def _sorted_winners(key, ts, gid, ctr, alive, valh) -> RowWinners:
         dim=1,
     )
     return RowWinners(alive_s & run_last, key_s, g_s, c_s, valh_s, t_s)
+
+
+# ---------------------------------------------------------------------------
+# store maintenance
+
+
+def flagged_first_order(flags: torch.Tensor, budget: int) -> torch.Tensor:
+    """int64[..., min(budget, n)]: the first ``budget`` flagged positions
+    along the last axis in ascending order, unfilled slots holding a
+    guaranteed-UNFLAGGED index (``ops/binned.py:128``). The filler is
+    ``argmin(flags)``, the first unflagged index: a filler that aliased a
+    flagged row would enter the kill pass unmasked and subtract that
+    row's digest twice. Flagged positions past the budget all land in
+    the trash slot ``kb``, which is cut off."""
+    n = flags.shape[-1]
+    kb = min(budget, n)
+    rank = torch.cumsum(flags.to(_LONG), -1) - 1
+    dest = torch.where(flags, rank.clamp(max=kb), kb)
+    filler = flags.to(torch.int32).argmin(dim=-1, keepdim=True)
+    out = filler.expand(*flags.shape[:-1], kb + 1).clone()
+    out.scatter_(-1, dest, torch.arange(n, device=flags.device).expand(flags.shape))
+    return out[..., :kb]
+
+
+def _row_reduce(node, vals, r: int, init: int, how: str) -> torch.Tensor:
+    """``full([..., U, r], init).at[u, node].<how>(vals)`` (node out of
+    ``[0, r)`` drops)."""
+    idx = node.to(_LONG)
+    idx = torch.where((idx >= 0) & (idx < r), idx, r)
+    out = torch.full((*node.shape[:-1], r + 1), init, dtype=_LONG, device=node.device)
+    out.scatter_reduce_(-1, idx, vals, how)
+    return out[..., :r].contiguous()
+
+
+def _row_amin(node, ctr, alive, r: int) -> torch.Tensor:
+    """int64[..., U, R] min alive counter per (row, writer slot);
+    U32_MAX if none (``ops/binned.py:160``)."""
+    return _row_reduce(node, torch.where(alive, ctr, U32_MAX), r, U32_MAX, "amin")
+
+
+def _row_amax(node, ctr, alive, r: int) -> torch.Tensor:
+    """int64[..., U, R] max alive counter per (row, writer slot); 0 if
+    none (``ops/binned.py:170``)."""
+    return _row_reduce(node, torch.where(alive, ctr, 0), r, 0, "amax")
+
+
+def _row_compact(cols: dict, alive: torch.Tensor):
+    """Stable-pack alive entries to the front of each row
+    (``ops/binned.py:180``); returns (packed cols, packed alive, fill
+    per row). The sort key is uint8: CUDA sorts no bool."""
+    order = torch.sort((~alive).to(torch.uint8), dim=-1, stable=True).indices
+    packed = {c: torch.gather(v, -1, order) for c, v in cols.items()}
+    alive_p = torch.gather(alive, -1, order)
+    return packed, alive_p, alive_p.sum(-1, dtype=torch.int32)
+
+
+_ROW_COLS = ("key", "valh", "ts", "node", "ctr", "ehash")
+
+
+def _leaf_sum(alive: torch.Tensor, ehash: torch.Tensor) -> torch.Tensor:
+    """Wrapping uint32 sum of the alive entry hashes of each row."""
+    return torch.where(alive, ehash, 0).sum(-1) & M32
+
+
+def compact_rows(state: BinnedStore) -> BinnedStore:
+    """Full repack (``ops/binned.py:1037``): reclaim holes left by merge
+    kills and rebuild every maintained invariant, single or stacked."""
+    R = state.replica_capacity
+    packed, alive_p, fill = _row_compact({c: getattr(state, c) for c in _ROW_COLS}, state.alive)
+    return BinnedStore(
+        **packed,
+        alive=alive_p,
+        fill=fill,
+        amin=_row_amin(packed["node"], packed["ctr"], alive_p, R),
+        amax=_row_amax(packed["node"], packed["ctr"], alive_p, R),
+        leaf=_leaf_sum(alive_p, packed["ehash"]),
+        ctx_gid=state.ctx_gid,
+        ctx_max=state.ctx_max,
+    )
+
+
+def init_from_columns(state: BinnedStore) -> BinnedStore:
+    """Rebuild ``ehash`` from the entry columns, then every maintained
+    invariant (``ops/binned.py:1025``): for host-built states whose host
+    filled key/valh/ts/node/ctr/alive and the context tables."""
+    node_c = state.node.clamp(0, state.replica_capacity - 1)
+    gid = dataclasses.replace(state, node=node_c).entry_gid()
+    ehash = entry_hash(state.key, gid, state.ctr, state.ts, state.valh)
+    return compact_rows(dataclasses.replace(state, ehash=ehash))
+
+
+# ---------------------------------------------------------------------------
+# the row-granular pair: extraction and merge
+
+
+def extract_rows(state: BinnedStore, rows: torch.Tensor) -> RowSlice:
+    """The slice of a set of bucket rows (``ops/binned.py:383``; -1
+    pads). For a stacked state the slice has one lane per state."""
+    L = state.num_buckets
+    valid = rows >= 0
+    rows_clip = rows.clamp(0, L - 1)
+    take = lambda c: getattr(state, c)[..., rows_clip, :]
+    ctx_rows = take("ctx_max") * valid[:, None]
+    return RowSlice(
+        rows=rows.expand(*state.key.shape[:-2], rows.shape[0]),
+        key=take("key"),
+        valh=take("valh"),
+        ts=take("ts"),
+        node=take("node"),
+        ctr=take("ctr"),
+        alive=take("alive") & valid[:, None],
+        ctx_rows=ctx_rows,
+        ctx_lo=torch.zeros_like(ctx_rows),
+        ctx_gid=state.ctx_gid,
+    )
+
+
+class MergeRowsResult(NamedTuple):
+    """``ops/binned.py:770``; each field has a leading lane axis for a
+    stacked state."""
+
+    state: BinnedStore
+    ok: torch.Tensor  # bool: result valid
+    need_gid_grow: torch.Tensor  # bool: unknown writer gids overflowed R
+    need_fill_grow: torch.Tensor  # bool: survivors + inserts exceed B
+    need_ctx_gap: torch.Tensor  # bool: delta-interval not contiguous
+    n_inserted: torch.Tensor  # int64
+    n_killed: torch.Tensor  # int64
+    n_ins_row: torch.Tensor  # int64[U]
+    n_kill_row: torch.Tensor  # int64[U]
+    gap_row: torch.Tensor  # bool[U]
+
+
+def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
+    n, L, B = state.key.shape
+    R = state.replica_capacity
+    u = sl.key.shape[-2]
+    rr = sl.ctx_gid.shape[-1]
+    lanes = _lanes(n, state.device)
+
+    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
+    g = {c: getattr(state, c)[lanes, v.rows_clip] for c in _ROW_COLS}  # [N, U, B]
+    galive = state.alive[lanes, v.rows_clip] & v.valid[..., None]
+    gnode = g["node"].to(_LONG)
+
+    # kill pass ((s1∩s2) ∪ (s1∖c2)) on every row: a local dot dies iff
+    # the interval covers it and the slice does not carry it. Presence
+    # compares packed dots: node << 32 | ctr is equal exactly when both
+    # parts are, and -1 (no slice entry) matches no local dot
+    covered = (torch.gather(v.rdense, -1, gnode) >= g["ctr"]) & (
+        torch.gather(v.ldense, -1, gnode) < g["ctr"]
+    )
+    r_ok = sl.alive & (v.ln >= 0)
+    r_dot = torch.where(r_ok, encode_dot(v.ln_clip, sl.ctr), -1)
+    present = (encode_dot(gnode, g["ctr"])[..., :, None] == r_dot[..., None, :]).any(-1)
+    die = galive & covered & ~present
+    alive_surv = galive & ~die
+
+    # pack survivors + inserts into the row's B slots (one stable sort,
+    # holes reclaimed as a side effect)
+    gid_ins = torch.gather(
+        sl.ctx_gid[:, None, :].expand(n, u, rr), -1, sl.node.clamp(0, rr - 1).to(_LONG)
+    )
+    eh_ins = entry_hash(sl.key, gid_ins, sl.ctr, sl.ts, sl.valh)
+    ins_cols = {
+        "key": sl.key, "valh": sl.valh, "ts": sl.ts,
+        "node": v.ln_clip.to(torch.int32), "ctr": sl.ctr, "ehash": eh_ins,
+    }
+    wide = {c: torch.cat([g[c], ins_cols[c]], dim=-1) for c in _ROW_COLS}
+    packed_w, alive_w, n_alive_row = _row_compact(wide, torch.cat([alive_surv, v.ins], dim=-1))
+    packed = {c: x[..., :B] for c, x in packed_w.items()}
+    alive_p = alive_w[..., :B]
+    need_fill_grow = (v.valid & (n_alive_row > B)).any(-1)
+
+    rs = v.rows_safe
+    new_state = BinnedStore(
+        **{c: _set_rows(getattr(state, c), rs, packed[c]) for c in _ROW_COLS},
+        alive=_set_rows(state.alive, rs, alive_p),
+        fill=_set_rows(state.fill, rs, n_alive_row.clamp(max=B), True),
+        amin=_set_rows(state.amin, rs, _row_amin(packed["node"], packed["ctr"], alive_p, R), True),
+        amax=_set_rows(state.amax, rs, _row_amax(packed["node"], packed["ctr"], alive_p, R), True),
+        leaf=_set_rows(state.leaf, rs, _leaf_sum(alive_p, packed["ehash"]), True),
+        ctx_gid=v.gids.ctx_gid,
+        ctx_max=_set_rows(state.ctx_max, rs, torch.maximum(v.local_ctx, v.rdense), True),
+    )
+    ok = ~(v.gids.overflow | need_fill_grow | v.need_ctx_gap)
+    n_ins_row = v.ins.sum(-1)
+    n_kill_row = die.sum(-1)
+    return MergeRowsResult(
+        new_state, ok, v.gids.overflow, need_fill_grow, v.need_ctx_gap,
+        n_ins_row.sum(-1), n_kill_row.sum(-1), n_ins_row, n_kill_row, v.gap_row,
+    )
+
+
+def merge_rows(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
+    """Row-granular anti-entropy merge (``ops/binned.py:793``): gather
+    the slice's rows whole, kill, insert and repack each row with dense
+    row-local math, write the rows back. The join of the reference
+    (``aw_lww_map.ex:153-209``): insert s2 ∖ c1, kill s1 dots covered by
+    the remote interval and absent from s2, context union =
+    per-(bucket, writer) max, delta-interval contiguity enforced.
+
+    ``state`` is one store or a stack; a stack takes a shared slice or
+    one slice per lane (``ring_gossip_round``). Never writes into its
+    inputs."""
+    st, single = _with_lanes(state)
+    res = _merge_rows_b(st, _lane_slice(sl, st.key.shape[0]))
+    return _lane0(res) if single else res
+
+
+# ---------------------------------------------------------------------------
+# the element-scatter merge (bulk fan-in)
+
+
+class MergeResult(NamedTuple):
+    """``ops/binned.py:526``; each field has a leading lane axis for a
+    stacked state."""
+
+    state: BinnedStore
+    ok: torch.Tensor  # bool: result valid (budgets sufficed)
+    need_gid_grow: torch.Tensor  # bool: unknown writer gids overflowed R
+    need_kill_tier: torch.Tensor  # bool: flagged rows exceeded the kill budget
+    need_fill_compact: torch.Tensor  # bool: some row ran out of bin space
+    need_ctx_gap: torch.Tensor  # bool: delta-interval not contiguous
+    need_ins_tier: torch.Tensor  # bool: inserts exceeded the max_inserts tier
+    n_inserted: torch.Tensor  # int64
+    n_killed: torch.Tensor  # int64
+
+
+def _merge_slice_b(
+    state: BinnedStore, sl: RowSlice, kill_budget: int, max_inserts: int | None
+) -> MergeResult:
+    n, L, B = state.key.shape
+    R = state.replica_capacity
+    u, s = sl.key.shape[-2:]
+    rr = sl.ctx_gid.shape[-1]
+    dev = state.device
+    lanes = _lanes(n, dev)
+    LB = L * B
+
+    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
+    valid, rows_safe, rows_clip, ins = v.valid, v.rows_safe, v.rows_clip, v.ins
+
+    # --- insert pass (s2 ∖ c1): element scatters at fill positions
+    ins_rank = torch.cumsum(ins.to(_LONG), -1) - 1
+    n_ins_row = ins.sum(-1)
+    fill_rows = state.fill[lanes, rows_clip].to(_LONG)
+    need_fill_compact = (valid & (fill_rows + n_ins_row > B)).any(-1)
+    pos = fill_rows[..., None] + ins_rank  # [N, U, S] target bin slot
+    # overflowing rows (pos >= B) must not clip into valid slots; padding
+    # positions are distinct out-of-range values (L*B + position), so
+    # the compacted order below has no ties
+    real = ins & (pos < B)
+    pad_idx = LB + torch.arange(u * s, device=dev).reshape(u, s)
+    flat = torch.where(real, rows_clip[..., None] * B + pos.clamp(0, B - 1), pad_idx)
+    flat = flat.reshape(n, u * s)
+    n_inserted = ins.sum((-2, -1))
+
+    if max_inserts is None:
+        need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
+        flat_c = flat
+        take = lambda a: a.reshape(n, u * s)
+    else:
+        # the k smallest flat indices in ascending order: the real insert
+        # positions first, padding last (jax.lax.top_k of -flat; flat is
+        # duplicate-free, so the positions are JAX's)
+        k = min(max_inserts, u * s)
+        flat_c, sel = torch.topk(flat, k, dim=-1, largest=False, sorted=True)
+        need_ins_tier = n_inserted > k
+        take = lambda a: torch.gather(a.reshape(n, u * s), 1, sel)
+
+    key_c, valh_c, ts_c, ctr_c = take(sl.key), take(sl.valh), take(sl.ts), take(sl.ctr)
+    ln_c = take(v.ln_clip)
+    node_c = take(sl.node.clamp(0, rr - 1).to(_LONG))
+    eh_c = entry_hash(key_c, torch.gather(sl.ctx_gid, -1, node_c), ctr_c, ts_c, valh_c)
+    ins_c = flat_c < LB  # real inserts; padding indices drop
+    rows_c = flat_c // B  # >= L (dropped) for padding
+    idx = torch.where(ins_c, flat_c, LB)
+
+    def put(col, vals):
+        e = _ext(col)
+        e.scatter_(1, idx, vals.to(col.dtype))
+        return e
+
+    key_e, valh_e, ts_e = put(state.key, key_c), put(state.valh, valh_c), put(state.ts, ts_c)
+    node_e, ctr_e, ehash_e = put(state.node, ln_c), put(state.ctr, ctr_c), put(state.ehash, eh_c)
+    alive_e = put(state.alive, ins_c)
+    fill_e = _ext(state.fill)
+    fill_e.scatter_add_(1, rows_safe, n_ins_row.to(torch.int32))
+    ridx = torch.where(rows_c < L, rows_c * R + ln_c, L * R)
+    amin_e = _ext(state.amin)
+    amin_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, U32_MAX), "amin")
+    amax_e = _ext(state.amax)
+    amax_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, 0), "amax")
+    # leaf digests as wrapping uint32 sums: int64 adds here, one mask at
+    # the end (the kill pass adds its negated dead hashes before it)
+    leaf_e = _ext(state.leaf)
+    if max_inserts is None:
+        leaf_add = torch.where(real, eh_c.reshape(n, u, s), 0).sum(-1)
+        leaf_e.scatter_add_(1, rows_safe, leaf_add)
+    else:
+        leaf_e.scatter_add_(1, torch.where(rows_c < L, rows_c, L), torch.where(ins_c, eh_c, 0))
+    # context union: max per (row, local writer slot), one order-free
+    # scatter for all the slice's writer columns
+    colr = torch.where(v.gids.remap >= 0, v.gids.remap, R)[:, None, :]  # [N, 1, Rr]
+    cidx = torch.where((rows_safe[..., None] < L) & (colr < R), rows_safe[..., None] * R + colr, L * R)
+    ctx_e = _ext(state.ctx_max)
+    ctx_e.scatter_reduce_(
+        1, cidx.reshape(n, -1), torch.where(v.nonempty, sl.ctx_rows, 0).reshape(n, -1), "amax"
+    )
+
+    # --- kill pass ((s1∩s2) ∪ (s1∖c2)), pruned by amin/amax: the
+    # interval (lo, hi] can only kill a local dot if it overlaps the
+    # [amin, amax] alive-counter span of some (bucket, writer), on the
+    # PRE-merge state
+    amin_rows = state.amin[lanes, rows_clip]
+    amax_rows = state.amax[lanes, rows_clip]
+    flagged = valid & ((v.rdense >= amin_rows) & (v.ldense < amax_rows)).any(-1)
+    need_kill_tier = flagged.sum(-1) > kill_budget
+    order = flagged_first_order(flagged, kill_budget)  # [N, KB]
+    k_valid = torch.gather(flagged, 1, order)
+    k_rows = torch.where(k_valid, torch.gather(rows_clip, 1, order), L)
+    k_rows_clip = k_rows.clamp(0, L - 1)
+
+    # local dots of the flagged rows, read through the post-insert
+    # columns: inserted entries carry fresh remote dots present in the
+    # slice, so they survive their own coverage test
+    shape = state.key.shape
+    node2, ctr2 = _unext(node_e, shape), _unext(ctr_e, shape)
+    l_node = node2[lanes, k_rows_clip].to(_LONG)  # [N, KB, B]
+    l_ctr = ctr2[lanes, k_rows_clip]
+    l_alive = _unext(alive_e, shape)[lanes, k_rows_clip] & k_valid[..., None]
+    l_ehash = _unext(ehash_e, shape)[lanes, k_rows_clip]
+    k_rdense = v.rdense[lanes, order]  # [N, KB, R]
+    k_ldense = v.ldense[lanes, order]
+    covered = (torch.gather(k_rdense, -1, l_node) >= l_ctr) & (
+        torch.gather(k_ldense, -1, l_node) < l_ctr
+    )
+    r_alive = sl.alive[lanes, order] & k_valid[..., None]
+    r_dot = torch.where(r_alive, encode_dot(v.ln_clip[lanes, order], sl.ctr[lanes, order]), 0)
+    present = (encode_dot(l_node, l_ctr)[..., :, None] == r_dot[..., None, :]).any(-1)
+    die = l_alive & covered & ~present
+    surv = l_alive & ~die
+
+    kidx = torch.where(k_valid[..., None], k_rows[..., None] * B + torch.arange(B, device=dev), LB)
+    alive_e.scatter_(1, kidx.reshape(n, -1), surv.reshape(n, -1))
+    k_row_or_drop = torch.where(k_valid, k_rows, L)
+    leaf_e.scatter_add_(1, k_row_or_drop, -torch.where(die, l_ehash, 0).sum(-1))
+    kr = torch.where(k_valid[..., None], k_rows[..., None] * R + torch.arange(R, device=dev), L * R)
+    amin_e.scatter_(1, kr.reshape(n, -1), _row_amin(l_node, l_ctr, surv, R).reshape(n, -1))
+    amax_e.scatter_(1, kr.reshape(n, -1), _row_amax(l_node, l_ctr, surv, R).reshape(n, -1))
+
+    ok = ~(v.gids.overflow | need_kill_tier | need_fill_compact | v.need_ctx_gap | need_ins_tier)
+    small = lambda e, like: _unext(e, like.shape, contiguous=True)
+    new_state = BinnedStore(
+        key=_unext(key_e, shape),
+        valh=_unext(valh_e, shape),
+        ts=_unext(ts_e, shape),
+        node=node2,
+        ctr=ctr2,
+        alive=_unext(alive_e, shape),
+        ehash=_unext(ehash_e, shape),
+        fill=small(fill_e, state.fill),
+        amin=small(amin_e, state.amin),
+        amax=small(amax_e, state.amax),
+        leaf=small(leaf_e, state.leaf) & M32,
+        ctx_gid=v.gids.ctx_gid,
+        ctx_max=small(ctx_e, state.ctx_max),
+    )
+    return MergeResult(
+        new_state, ok, v.gids.overflow, need_kill_tier, need_fill_compact,
+        v.need_ctx_gap, need_ins_tier, n_inserted, die.sum((-2, -1)),
+    )
+
+
+def merge_slice(
+    state: BinnedStore,
+    sl: RowSlice,
+    kill_budget: int,
+    max_inserts: int | None = None,
+) -> MergeResult:
+    """Join a received bucket slice into the state (``ops/binned.py:540``)
+    — O(slice) plus O(kill_budget · B) for the pruned kill pass:
+
+    - insert remote entries not covered by the local context (s2 ∖ c1)
+      at each row's ``fill`` position;
+    - kill local entries covered by the remote context interval and
+      absent from the remote entries, in at most ``kill_budget`` rows
+      that the ``amin``/``amax`` test flags (else ``need_kill_tier``);
+    - context union (per-replica max), valid because the interval is
+      verified contiguous with the local context (``need_ctx_gap``).
+
+    ``max_inserts`` (a tier) compacts the insert scatter to the
+    ``max_inserts`` smallest insert positions (``need_ins_tier`` if more
+    are needed); ``None`` scatters the whole slice grid.
+
+    ``state`` is one store or a neighbour stack (one merge per lane, the
+    slice shared, ``fanout_merge``). Never writes into its inputs, so a
+    failed merge can be re-run on the same state."""
+    st, single = _with_lanes(state)
+    res = _merge_slice_b(st, _lane_slice(sl, st.key.shape[0]), kill_budget, max_inserts)
+    return _lane0(res) if single else res

@@ -90,9 +90,9 @@ LATER_OPTIONS = {
     "log_shipping": ("WAL, storage and log shipping", False),
     "catchup_chunk_rows": ("WAL, storage and log shipping", ...),
     "catchup_suffix_ratio": ("WAL, storage and log shipping", ...),
-    "ingress_coalesce": ("bulk fan-in", False),
-    "max_coalesce": ("bulk fan-in", ...),
-    "ingress_batch": ("bulk fan-in", ...),
+    "ingress_coalesce": ("ingress coalescing", False),
+    "max_coalesce": ("ingress coalescing", ...),
+    "ingress_batch": ("ingress coalescing", ...),
     "tree_gossip": ("tree gossip", False),
     "tree_fanout": ("tree gossip", ...),
     "tree_seed": ("tree gossip", ...),

@@ -138,6 +138,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, delta_crdt_ex_tpu_torch\n"
         "import delta_crdt_ex_tpu_torch.ops.hash_map, delta_crdt_ex_tpu_torch.utils.kernels\n"
+        "import delta_crdt_ex_tpu_torch.ops.roots, delta_crdt_ex_tpu_torch.utils.synth\n"
+        "import delta_crdt_ex_tpu_torch.parallel.batched_sync, delta_crdt_ex_tpu_torch.models.binned_map\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
     )
