@@ -11,14 +11,21 @@ Phases (each raises on failure; any failure exits nonzero):
    (one ``nvcc`` per source, started together) and print each one's
    ptxas lines, the card's name and its power limit;
 2. kernels vs plain versions on the card: the probe-window lookup
-   kernel against ``probe_lookup_ref`` on seeded tables (H ∈ {256, 2^21},
-   W ∈ {8, 32, 128, 256}, Q ∈ {8, 2048, 4096, 2^20 − 3}; missing keys,
-   end-of-table windows, dead lanes, several live dots of one key,
-   top-bit keys and gids), the whole int32 grid bit-equal; the roots
-   kernel against ``batched_roots_ref`` at N ∈ {1, 11, 64, 4096} ×
-   L ∈ {1, 2, 128, 2^14, 2^20} (but N·L ≤ 2^28), top-bit leaves, every
-   root bit-equal, swapped siblings changing the root; then each
-   kernel's time, its plain version's time and its memory bound;
+   kernel against ``probe_lookup_ref`` on seeded tables at every shape
+   of ``PROBE_SHAPES`` (H ∈ {8, 16, 256, 2^21}, W ∈ {1, 5, 8, 12, 16,
+   32, 33, 128, 256}, writer tables of 8, 2048 and 4096 entries, Q up
+   to 2^20 − 3; missing keys, windows that run off or end exactly at
+   the table end, dead lanes, several live dots of one key, winners on
+   every thread of a query's group, top-bit keys and gids), the whole
+   int32 grid bit-equal; the roots kernel against ``batched_roots_ref``
+   at N ∈ {1, 11, 64, 133, 4096} × L ∈ {1, 2, 4, 8, 16, 128, 2^14,
+   2^20} (but N·L ≤ 2^28) at every cluster size and the picked one,
+   top-bit leaves, every root bit-equal, swapped siblings and swapped
+   leaves either side of a cluster boundary changing the root; then
+   each kernel's duration by the profiler, its plain version's time and
+   its memory bound at the main paths' shapes (``PROBE_TIMED``,
+   ``ROOTS_TIMED``), and its time by CUDA events at the first of them,
+   the headline of the ``kernels`` line;
 3. the slice at full size: two threaded replicas on ``cuda``
    (``store="hash"``, sync_interval 20 ms, max_sync_size 500, an
    ``on_diffs`` subscriber each) — ``mutate_batch`` of ``--keys`` keys
@@ -53,7 +60,8 @@ Phases (each raises on failure; any failure exits nonzero):
    every leaf equal at the end, and every lane's content (alive entries
    and context over global writer ids) equal.
 
-Metrics print on their own lines; the line before the last is the
+Metrics print on their own lines, then each kernel's launches ×
+(kernel time − bound) by timed shape; the line before the last is the
 kernel table as JSON, the last line is the device record. The script
 imports nothing of JAX or of the JAX package, and exits nonzero without
 a result when CUDA is absent or the port is not beside it.
@@ -110,68 +118,6 @@ def phase_build() -> None:
 # phase 2: kernel vs plain
 
 
-def seeded_table(H: int, W: int, n_keys: int, seed: int, device):
-    """A hash-store table with ``n_keys`` keys placed in their probe
-    windows (1-3 live dots each, some dead copies), random garbage in
-    the other lanes, and a writer table with top-bit gids. Returns
-    ``(state, placed_keys int64)``."""
-    import torch
-
-    from delta_crdt_ex_tpu_torch.models.hash_store import HashStore
-    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_base
-
-    g = np.random.default_rng(seed)
-    R = 8
-    rnd_u64 = lambda n: torch.from_numpy(g.integers(0, 2**63, n, dtype=np.int64) ^ np.where(g.random(n) < 0.5, np.int64(-(2**63)), np.int64(0))).to(device)
-    key = rnd_u64(H)
-    alive = torch.from_numpy(g.random(H) < 0.3).to(device)
-    node = torch.from_numpy(g.integers(0, R, H).astype(np.int32)).to(device)
-    ctr = torch.from_numpy(g.integers(0, 2**32, H, dtype=np.int64)).to(device)
-    ts = torch.from_numpy(g.integers(0, 4, H, dtype=np.int64)).to(device)  # few values: ties
-    valh = torch.from_numpy(g.integers(0, 2**32, H, dtype=np.int64)).to(device)
-    gid = np.array(
-        [0xF000000000000001, 0x7000000000000001, 0xF000000000000002, 5,
-         0x8000000000000000, 0xFFFFFFFFFFFFFFFF, 3, 0],
-        dtype=np.uint64,
-    )
-    ctx_gid = torch.from_numpy(gid.view(np.int64).copy()).to(device)
-
-    keys = rnd_u64(n_keys)
-    # a share of the keys chosen so their windows run off the table end
-    cand = rnd_u64(max(64 * n_keys // 16, 64))
-    cb = probe_base(cand, H).to(torch.int64)
-    tail = cand[cb + W > H][: n_keys // 16]
-    keys = torch.cat([keys[: n_keys - len(tail)], tail])
-    base = probe_base(keys, H).to(torch.int64)
-    room = torch.clamp(H - base, max=W)
-    for copy in range(3):
-        take = torch.from_numpy(g.random(len(keys)) < (1.0, 0.5, 0.25)[copy]).to(device)
-        off = torch.from_numpy(g.integers(0, 2**31, len(keys))).to(device) % room
-        lane = (base + off)[take]
-        key[lane] = keys[take]
-        alive[lane] = torch.from_numpy(g.random(int(take.sum())) < 0.85).to(device)
-    st = HashStore(
-        key=key, valh=valh, ts=ts, node=node, ctr=ctr, alive=alive,
-        ehash=torch.zeros_like(ctr), arr=torch.zeros_like(ctr),
-        leaf=torch.zeros(16, dtype=torch.int64, device=device),
-        rowseq=torch.zeros(16, dtype=torch.int64, device=device),
-        ctx_gid=ctx_gid, ctx_max=torch.zeros((16, R), dtype=torch.int64, device=device),
-        probe_window=W,
-    )
-    return st, keys
-
-
-def queries(keys, Q: int, seed: int):
-    """``Q`` query hashes: three quarters placed keys, the rest missing."""
-    import torch
-
-    g = np.random.default_rng(seed)
-    n_hit = (3 * Q) // 4
-    hit = keys[torch.from_numpy(g.integers(0, len(keys), n_hit)).to(keys.device)]
-    miss = torch.from_numpy(g.integers(-(2**63), 2**63 - 1, Q - n_hit, dtype=np.int64)).to(keys.device)
-    return torch.cat([hit, miss])[torch.from_numpy(g.permutation(Q)).to(keys.device)]
-
-
 def ref_chunked(qk, st):
     import torch
 
@@ -181,25 +127,37 @@ def ref_chunked(qk, st):
     return torch.cat([probe_lookup_ref(qk[i : i + step], st) for i in range(0, len(qk), step)])
 
 
-def time_ms(fn, reps: int, flush=None) -> float:
-    """Mean device time of one ``fn()`` call over ``reps`` calls, by CUDA
-    events around each call (``flush()`` runs between calls, untimed)."""
+#: device spin before each timed call (about 0.5 ms): the host enqueues
+#: the call while the device is busy, so the timed interval holds the
+#: device's work and not the host's Python
+SPIN_CYCLES = 1_000_000
+
+
+def time_ms(fn, reps: int, flush=None) -> tuple[float, float]:
+    """``(device ms, host ms)`` of one ``fn()`` call, means over ``reps``
+    calls: device time by CUDA events around each call, recorded while
+    the device still spins (so the host's enqueue is not in it), host
+    time by the host clock around the enqueue. ``flush()`` runs between
+    calls, untimed."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    dev = host = 0.0
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         fn()
+        host += time.perf_counter() - t0
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / reps
+        dev += a.elapsed_time(b)
+    return dev / reps, host * 1e3 / reps
 
 
 def probe_bound_bytes(qk, st) -> int:
@@ -227,73 +185,63 @@ def probe_bound_bytes(qk, st) -> int:
     return n_lanes * (8 + 1) + n_hits * (4 + 8 + 8 + 8) + st.replica_capacity * 8 + len(qk) * (8 + 32)
 
 
-def phase_kernel_vs_plain(device_name: str) -> dict:
+#: probe shapes held bit-equal in phase 2: (H, W, R, Qs); the first
+#: block is the original grid, then windows that are not a multiple of 4 or of
+#: the thread group, the smallest tables, and writer tables at and past
+#: the kernel's shared-memory cap (2048 entries)
+PROBE_SHAPES = (
+    [(H, W, 8, (8, 2048, 4096, (1 << 20) - 3)) for H in (256, 1 << 21) for W in (8, 32, 128, 256)]
+    + [(H, W, 8, (8, 2048, (1 << 20) - 3)) for H in (256, 1 << 21) for W in (1, 12, 33)]
+    + [(8, W, 8, (8, 2048)) for W in (1, 5, 8)]
+    + [(16, W, 8, (8, 2048)) for W in (1, 12, 16)]
+    + [(1 << 21, 32, R, (2048, (1 << 20) - 3)) for R in (2048, 4096)]
+)
+
+
+def phase_kernel_vs_plain() -> int:
+    """The probe kernel against ``probe_lookup_ref`` at every shape of
+    :data:`PROBE_SHAPES`; returns the max abs error (0)."""
     import torch
 
-    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel, probe_lookup_ref
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_base, probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.utils.probe_tables import queries, seeded_table
 
     dev = torch.device("cuda")
     max_err = 0
     shapes = 0
-    timing = None
-    for H in (256, 1 << 21):
-        for W in (8, 32, 128, 256):
-            st, keys = seeded_table(H, W, max(H // 8, 16), seed=H * 7 + W, device=dev)
-            for Q in (8, 2048, 4096, (1 << 20) - 3):
-                qk = queries(keys, Q, seed=Q + W)
-                got = probe_lookup_kernel(qk, st)
-                want = ref_chunked(qk, st)
-                torch.cuda.synchronize()
-                err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-                max_err = max(max_err, err)
-                found = int(want[:, 0].sum())
-                log(f"[kernel] H={H} W={W} Q={Q}: found {found}/{Q}, max_abs_err {err}")
-                if err != 0:
-                    bad = torch.nonzero((got != want).any(dim=1))[:4, 0]
-                    raise AssertionError(
-                        f"probe kernel disagrees with probe_lookup_ref at H={H} W={W} "
-                        f"Q={Q}: rows {bad.tolist()}: kernel {got[bad].tolist()} "
-                        f"plain {want[bad].tolist()}"
-                    )
-                shapes += 1
-            if H == 1 << 21 and W == 32:
-                timing = (st, keys)
-    # time at the issue's shape (H = 2^21, W = 32, Q = 2^20) and at the
-    # main path's read shape (Q = 2048, the wire tier of a 1024-op batch)
-    st, keys = timing
-    scratch = torch.empty(1 << 27, dtype=torch.uint8, device=dev)  # 128 MiB > L2
-    flush = lambda: scratch.random_(0, 255)
-    out = {}
-    for Q in (1 << 20, 2048):
-        qk = queries(keys, Q, seed=99)
-        kern = time_ms(lambda: probe_lookup_kernel(qk, st), 20, flush)
-        plain = time_ms(lambda: probe_lookup_ref(qk, st), 5 if Q > 4096 else 20, flush)
-        nbytes = probe_bound_bytes(qk, st)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(
-            f"[kernel-time] probe_lookup H={st.table_size} W={st.probe_window} Q={Q} "
-            f"(L2 flushed between calls): kernel {kern:.6f} ms, plain {plain:.6f} ms, "
-            f"bound {bound:.6f} ms ({nbytes} B at 3.35 TB/s), kernel/bound "
-            f"{kern / bound:.3f} on {device_name}"
-        )
-        out[Q] = (kern, plain, bound)
-    kern, plain, bound = out[1 << 20]
-    log(f"[kernel] {shapes} shapes bit-equal; max_abs_err {max_err}")
-    probe_lookup_kernel.launches = 0  # comparison launches do not count
-    return {
-        "name": probe_lookup_kernel.name,
-        "route": "cuda",
-        "source": probe_lookup_kernel.source,
-        "replaces": probe_lookup_kernel.replaces,
-        "launches": 0,
-        "max_abs_err": max_err,
-        "ms": kern,
-        "plain_ms": plain,
-        "bound_ms": bound,
-        "bound_by": "bytes",
-        # no single PyTorch call computes the probe grid
-        "library_ms": None,
-    }
+    edge_rows = off_first = 0
+    for H, W, R, Qs in PROBE_SHAPES:
+        st, keys = seeded_table(H, W, max(H // 8, 16), seed=H * 7 + W + R, device=dev, R=R)
+        for Q in Qs:
+            qk = queries(keys, Q, seed=Q + W)
+            got = probe_lookup_kernel(qk, st)
+            want = ref_chunked(qk, st)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            max_err = max(max_err, err)
+            found = want[:, 0] == 1
+            base = probe_base(qk, H).to(torch.int64)
+            edge = int((base + W == H).sum())
+            # winners read from a thread other than the group's first
+            off = int((found & ((want[:, 1].to(torch.int64) - base) // 4 % probe_lookup_kernel.group(W) != 0)).sum())
+            edge_rows += edge
+            off_first += off
+            log(f"[kernel] H={H} W={W} R={R} Q={Q}: found {int(found.sum())}/{Q}, windows ending at the "
+                f"table end {edge}, winners off the group's first thread {off}, max_abs_err {err}")
+            if err != 0:
+                bad = torch.nonzero((got != want).any(dim=1))[:4, 0]
+                raise AssertionError(
+                    f"probe kernel disagrees with probe_lookup_ref at H={H} W={W} R={R} "
+                    f"Q={Q}: rows {bad.tolist()}: kernel {got[bad].tolist()} "
+                    f"plain {want[bad].tolist()}"
+                )
+            shapes += 1
+    if edge_rows == 0 or off_first == 0:
+        raise AssertionError(f"probe shapes lack windows ending at the table end ({edge_rows}) or "
+                             f"winners off a group's first thread ({off_first})")
+    log(f"[kernel] probe: {shapes} shapes bit-equal ({edge_rows} windows ending at the table end, "
+        f"{off_first} winners off the group's first thread); max_abs_err {max_err}")
+    return max_err
 
 
 def roots_bound_ms(n: int, L: int) -> float:
@@ -310,70 +258,176 @@ def random_leaves(n: int, L: int, seed: int):
     return torch.randint(0, 2**32, (n, L), dtype=torch.int64, device="cuda", generator=g)
 
 
-def phase_roots_vs_plain(device_name: str) -> dict:
+def phase_roots_vs_plain() -> int:
+    """The roots kernel against ``batched_roots_ref`` at N ∈ {1, 11, 64,
+    133, 4096} × L ∈ {1, 2, 4, 8, 16, 128, 2^14, 2^20} (N·L ≤ 2^28), at
+    every cluster size C ≤ min(8, L) and at the one the wrapper picks;
+    swapped siblings, and swapped leaves either side of each cluster
+    boundary L/C, change the root. Returns the max abs error (0)."""
     import torch
 
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel, batched_roots_ref
 
     max_err = 0
     shapes = 0
-    for n in (1, 11, 64, 4096):
-        for L in (1, 2, 128, 1 << 14, 1 << 20):
+    for n in (1, 11, 64, 133, 4096):
+        for L in (1, 2, 4, 8, 16, 128, 1 << 14, 1 << 20):
             if n * L > 1 << 28:  # 2 GiB of leaves: the plain fold's temporaries would not fit
                 continue
             leaf = random_leaves(n, L, seed=n * 31 + L)
-            got = batched_roots_kernel(leaf)
             want = batched_roots_ref(leaf)
-            torch.cuda.synchronize()
-            err = int((got - want).abs().max())
-            max_err = max(max_err, err)
             top = int((leaf >= 2**31).sum())
-            log(f"[kernel] roots N={n} L={L}: {top} top-bit leaves, max_abs_err {err}")
-            if err != 0:
-                bad = torch.nonzero(got != want)[:4, 0]
-                raise AssertionError(
-                    f"roots kernel disagrees with batched_roots_ref at N={n} L={L}: rows "
-                    f"{bad.tolist()}: kernel {got[bad].tolist()} plain {want[bad].tolist()}"
-                )
-            shapes += 1
-    for L in (2, 128, 1 << 14):
-        leaf = torch.zeros((2, L), dtype=torch.int64, device="cuda")
-        leaf[0, 0] = leaf[1, 1] = 0xDEADBEEF
-        r = batched_roots_kernel(leaf)
-        if int(r[0]) == int(r[1]) or not torch.equal(r, batched_roots_ref(leaf)):
-            raise AssertionError(f"roots kernel: swapped siblings at L={L} give roots {r.tolist()}")
-    log(f"[kernel] roots: {shapes} shapes bit-equal, swapped siblings change the root; max_abs_err {max_err}")
+            for c in (None, 1, 2, 4, 8):
+                if c is not None and c > L:
+                    continue
+                got = batched_roots_kernel(leaf, cluster=c)
+                torch.cuda.synchronize()
+                err = int((got - want).abs().max())
+                max_err = max(max_err, err)
+                c_used = batched_roots_kernel.cluster_for(n, L, leaf.device) if c is None else c
+                log(f"[kernel] roots N={n} L={L} cluster={c_used}{' (picked)' if c is None else ''}: "
+                    f"{top} top-bit leaves, max_abs_err {err}")
+                if err != 0:
+                    bad = torch.nonzero(got != want)[:4, 0]
+                    raise AssertionError(
+                        f"roots kernel disagrees with batched_roots_ref at N={n} L={L} cluster={c_used}: "
+                        f"rows {bad.tolist()}: kernel {got[bad].tolist()} plain {want[bad].tolist()}"
+                    )
+                shapes += 1
+            del leaf, want
+    swaps = 0
+    for L in (2, 16, 128, 1 << 14):
+        for c in (1, 2, 4, 8):
+            if c > L:
+                continue
+            # siblings 0 and 1, then the leaves either side of the boundary L/C
+            for i, j in ((0, 1),) + (((L // c - 1, L // c),) if c > 1 else ()):
+                leaf = torch.zeros((2, L), dtype=torch.int64, device="cuda")
+                leaf[0, i] = leaf[1, j] = 0xDEADBEEF
+                r = batched_roots_kernel(leaf, cluster=c)
+                if int(r[0]) == int(r[1]) or not torch.equal(r, batched_roots_ref(leaf)):
+                    raise AssertionError(
+                        f"roots kernel: leaves {i} and {j} swapped at L={L} cluster={c} give roots {r.tolist()}")
+                swaps += 1
+    torch.cuda.empty_cache()
+    log(f"[kernel] roots: {shapes} shape x cluster cases bit-equal, {swaps} swaps (siblings and "
+        f"cluster boundaries) change the root; max_abs_err {max_err}")
+    return max_err
 
-    scratch = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")  # 128 MiB > L2
+
+#: probe timing shapes (H, W, Q, share of queries that hit); the first is
+#: the headline of the ``kernels`` line, its shape since the kernel was
+#: ported: 2^20 queries on a 2^21-lane table; then the same with every
+#: query missing (so only the windows are read), then each wire tier the
+#: replica path launches on its 2^22-lane tables (8 = one op, 512 and
+#: 2048 = a mutation batch, 8192 = a 4096-key read_keys)
+PROBE_TIMED = [(1 << 21, 32, 1 << 20, 0.75), (1 << 21, 32, 1 << 20, 0.0)] + [
+    (1 << 22, 32, q, 0.75) for q in (8, 512, 2048, 8192)
+]
+#: roots timing shapes (N, L); the first is the headline, its shape since
+#: the kernel was ported: the fan-in's 64 lanes; then gossip's 8 and a
+#: wide batch
+ROOTS_TIMED = [(64, 1 << 14), (8, 1 << 14), (4096, 1 << 14)]
+
+
+def kernel_us(fn, flush, name: str, reps: int = 10) -> float:
+    """Mean duration of the device kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn()`` (``flush()`` between them), as
+    ``torch.profiler`` (CUPTI) records them: the kernel alone, without
+    the launch and event overhead that :func:`time_ms` includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        raise AssertionError(f"the profiler recorded no {name} kernel")
+    return sum(e.device_time_total for e in hits) / count
+
+
+def kernel_timings(device_name: str) -> dict:
+    """Each kernel's duration by the profiler at every shape of
+    :data:`PROBE_TIMED` and :data:`ROOTS_TIMED` (L2 flushed between
+    calls), beside its plain version's time and its byte bound; at the
+    first (headline) shape also its time by CUDA events (:func:`time_ms`),
+    the method of the ``ms`` of earlier ``kernels`` lines."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel, probe_lookup_ref
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel, batched_roots_ref
+    from delta_crdt_ex_tpu_torch.utils.probe_tables import queries, seeded_table
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(1 << 27, dtype=torch.uint8, device=dev)  # 128 MiB > L2
     flush = lambda: scratch.random_(0, 255)
-    out = {}
-    for n in (64, 4096):  # the fan-in's stack, and a wide batch
-        L = 1 << 14
+
+    def timed(fn, plain, name: str, head: bool, plain_reps: int) -> dict:
+        row = {"kernel_ms": kernel_us(fn, flush, name) / 1e3, "plain_ms": time_ms(plain, plain_reps, flush)[0]}
+        if head:
+            row["ms"], row["host_ms"] = time_ms(fn, 20, flush)
+        return row
+
+    def show(row: dict) -> str:
+        ev = f" ({row['ms']:.6f} ms by events, host enqueue {row['host_ms']:.6f} ms)" if "ms" in row else ""
+        return (f"kernel {row['kernel_ms']:.6f} ms{ev}, plain {row['plain_ms']:.6f} ms, bound "
+                f"{row['bound_ms']:.6f} ms, kernel/bound {row['kernel_ms'] / row['bound_ms']:.3f} on {device_name}")
+
+    rows: dict = {"probe": [], "roots": []}
+    tables: dict = {}
+    for i, (H, W, Q, hit) in enumerate(PROBE_TIMED):
+        if (H, W) not in tables:
+            tables[(H, W)] = seeded_table(H, W, H // 8, seed=H * 7 + W, device=dev)
+        st, keys = tables[(H, W)]
+        qk = queries(keys, Q, seed=99, hit=hit)
+        row = {"shape": {"H": H, "W": W, "Q": Q, "hits": hit}}
+        row.update(timed(lambda: probe_lookup_kernel(qk, st), lambda: probe_lookup_ref(qk, st),
+                         "probe_lookup", i == 0, 5 if Q > 8192 else 20))
+        nbytes = probe_bound_bytes(qk, st)
+        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[kernel-time] probe_lookup H={H} W={W} Q={Q} hits {hit} (L2 flushed between calls, bound "
+            f"{nbytes} B at 3.35 TB/s): {show(row)}")
+        rows["probe"].append(row)
+    del tables
+    for i, (n, L) in enumerate(ROOTS_TIMED):
         leaf = random_leaves(n, L, seed=7 + n)
-        kern = time_ms(lambda: batched_roots_kernel(leaf), 20, flush)
-        plain = time_ms(lambda: batched_roots_ref(leaf), 20, flush)
-        bound = roots_bound_ms(n, L)
-        log(
-            f"[kernel-time] batched_roots N={n} L={L} (L2 flushed between calls): kernel "
-            f"{kern:.6f} ms, plain {plain:.6f} ms, bound {bound:.6f} ms ({n * L * 8 + n * 8} B at "
-            f"3.35 TB/s), kernel/bound {kern / bound:.3f} on {device_name}"
-        )
-        out[n] = (kern, plain, bound)
-    kern, plain, bound = out[64]
-    batched_roots_kernel.launches = 0  # comparison launches do not count
+        row = {"shape": {"N": n, "L": L}}
+        row.update(timed(lambda: batched_roots_kernel(leaf), lambda: batched_roots_ref(leaf),
+                         "batched_roots", i == 0, 20))
+        row["bound_ms"] = roots_bound_ms(n, L)
+        log(f"[kernel-time] batched_roots N={n} L={L} (L2 flushed between calls, bound "
+            f"{n * L * 8 + n * 8} B at 3.35 TB/s): {show(row)}")
+        rows["roots"].append(row)
+    return rows
+
+
+def kernel_row(kernel, max_err: int, timed: list) -> dict:
+    """The kernel's entry of the ``kernels`` JSON line. Its headline
+    numbers are those of the first timed shape (``ms`` by CUDA events,
+    as in earlier lines); every timed shape is listed under ``shapes``
+    with the profiler's ``kernel_ms`` (launches filled in after the main
+    paths)."""
+    head = timed[0]
     return {
-        "name": batched_roots_kernel.name,
+        "name": kernel.name,
         "route": "cuda",
-        "source": batched_roots_kernel.source,
-        "replaces": batched_roots_kernel.replaces,
+        "source": kernel.source,
+        "replaces": kernel.replaces,
         "launches": 0,
         "max_abs_err": max_err,
-        "ms": kern,
-        "plain_ms": plain,
-        "bound_ms": bound,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
-        # no single PyTorch call computes the digest-tree fold
+        # no single PyTorch call computes the probe grid or the digest-tree fold
         "library_ms": None,
+        "shapes": timed,
     }
 
 
@@ -476,7 +530,7 @@ def phase_slice(n_keys: int, device: str = "cuda") -> dict:
     try:
         dc.set_neighbours(r1, [r2])
         dc.set_neighbours(r2, [r1])
-        probe_lookup_kernel.launches = 0  # the main path's run starts here
+        probe_lookup_kernel.reset()  # the main path's run starts here
 
         t0 = time.perf_counter()
         dc.mutate_batch(r1, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=budget_s)
@@ -530,11 +584,13 @@ def phase_slice(n_keys: int, device: str = "cuda") -> dict:
                     raise AssertionError(f"{r.name}: state column {name} is not on {device}")
         metrics["table_size"] = r1.state.table_size
         metrics["launches"] = probe_lookup_kernel.launches
+        metrics["launches_by_q"] = {str(q): n for q, n in sorted(probe_lookup_kernel.launches_by_shape.items())}
         if metrics["launches"] <= 0:
             raise AssertionError("the probe kernel was not launched on the main path")
         metrics["canonical_bytes"] = len(c1)
         log(f"[slice] canonical bytes equal ({len(c1)} B); table {r1.state.table_size} lanes; "
-            f"probe kernel launches on the main path: {metrics['launches']}")
+            f"probe kernel launches on the main path: {metrics['launches']}, by Q "
+            f"{metrics['launches_by_q']}")
         # launches below compare the kernel with its plain version and
         # are not the main path's
         metrics["table_max_abs_err"] = check_main_tables(reps, n_keys, removed)
@@ -698,7 +754,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
         ev.record()
         return ev
 
-    batched_roots_kernel.launches = 0  # the fan-in path's run starts here
+    batched_roots_kernel.reset()  # the fan-in path's run starts here
     per_call, marks, enqueue_s = [], [], []
     t0 = time.perf_counter()
     for i, sl in enumerate(slices):
@@ -716,6 +772,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
             enqueue_s.append(time.perf_counter() - t1)
             marks.append(stamp())
     launches = batched_roots_kernel.launches
+    by_shape = dict(batched_roots_kernel.launches_by_shape)
     sync()
     wall_s = time.perf_counter() - t0
     if cuda:
@@ -726,6 +783,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
         "stack": stack, "one": one, "keys": keys, "delta_keys": delta_keys, "slices": slices,
         "spare": spare, "per_call": [(s, r) for s, r, _ in per_call], "results": [x for _, _, x in per_call],
         "call_dts": call_dts, "enqueue_s": enqueue_s, "wall_s": wall_s, "launches": launches,
+        "launches_by_shape": by_shape,
         "setup_s": setup_s, "setup_bytes": setup_bytes,
     }
 
@@ -742,7 +800,8 @@ def phase_fanin(device_name: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     run = run_fanin(geo, "cuda")
     stack = run["stack"]
-    m: dict = {"geometry": geo, "setup_s": run["setup_s"], "launches": run["launches"]}
+    m: dict = {"geometry": geo, "setup_s": run["setup_s"], "launches": run["launches"],
+               "launches_by_shape": {f"{n}x{L}": c for (n, L), c in run["launches_by_shape"].items()}}
     m["call_ms"] = [d * 1e3 for d in run["call_dts"]]
     m["enqueue_ms"] = [d * 1e3 for d in run["enqueue_s"]]
     m.update(call_stats(run["call_dts"], geo["group"] * geo["N"]))
@@ -872,7 +931,7 @@ def phase_ring_gossip(base) -> dict:
         lanes.append(lane)
     stack = stack_states(lanes)
     torch.cuda.synchronize()
-    batched_roots_kernel.launches = 0  # the gossip path's run starts here
+    batched_roots_kernel.reset()  # the gossip path's run starts here
     t0 = time.perf_counter()
     for r in range(n - 1):
         res = ring_gossip_round(stack)
@@ -882,7 +941,8 @@ def phase_ring_gossip(base) -> dict:
         roots = batched_roots(stack.leaf)
     torch.cuda.synchronize()
     m = {"lanes": n, "rounds": n - 1, "round_ms": (time.perf_counter() - t0) / (n - 1) * 1e3,
-         "launches": batched_roots_kernel.launches}
+         "launches": batched_roots_kernel.launches,
+         "launches_by_shape": {f"{n}x{L}": c for (n, L), c in batched_roots_kernel.launches_by_shape.items()}}
     if not bool((roots == roots[0]).all()) or not bool((stack.leaf == stack.leaf[:1]).all()):
         raise AssertionError(f"ring gossip: roots differ after {n - 1} rounds: {roots.tolist()}")
     views = canonical_lanes(stack)
@@ -927,19 +987,38 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"[env] card: {name_power}")
     phase_build()
-    probe = phase_kernel_vs_plain(name_power)
-    roots = phase_roots_vs_plain(name_power)
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    probe_err = phase_kernel_vs_plain()
+    roots_err = phase_roots_vs_plain()
+    timed = kernel_timings(name_power)
+    probe = kernel_row(probe_lookup_kernel, probe_err, timed["probe"])
+    roots = kernel_row(batched_roots_kernel, roots_err, timed["roots"])
     m = phase_slice(args.keys)
     log("[slice-metrics] " + json.dumps(m))
     probe["launches"] = m["launches"]
     probe["max_abs_err"] = max(probe["max_abs_err"], m["table_max_abs_err"])
+    for row in probe["shapes"]:  # the replica path's tables have m["table_size"] lanes
+        sh = row["shape"]
+        on_path = sh["H"] == m["table_size"] and sh["W"] == 32 and sh["hits"] > 0
+        row["launches"] = m["launches_by_q"].get(str(sh["Q"]), 0) if on_path else 0
     phase_cuda_vs_cpu()
     f = phase_fanin(name_power)
     g = phase_ring_gossip(f.pop("base"))
     log("[fanin-metrics] " + json.dumps(f))
     log("[gossip-metrics] " + json.dumps(g))
-    roots["launches"] = f["launches"]
+    roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
+    roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"]}
     roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
+    for row in roots["shapes"]:
+        k = f"{row['shape']['N']}x{row['shape']['L']}"
+        row["launches"] = f["launches_by_shape"].get(k, 0) + g["launches_by_shape"].get(k, 0)
+    for kern in (probe, roots):
+        loss = [(row["shape"], row["launches"], row["launches"] * (row["kernel_ms"] - row["bound_ms"]))
+                for row in kern["shapes"]]
+        log(f"[kernel-loss] {kern['name']}: launches x (kernel_ms - bound_ms) by timed shape "
+            f"{[(sh, n, round(x, 6)) for sh, n, x in loss]}, sum {sum(x for _, _, x in loss):.6f} ms")
     log(f"[env] total {time.perf_counter() - t_start:.3f} s")
     print(name_power, flush=True)
     print(json.dumps({"kernels": [probe, roots]}), flush=True)

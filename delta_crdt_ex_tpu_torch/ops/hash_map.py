@@ -714,17 +714,24 @@ class ProbeLookupKernel:
     ``valh`` (4 + 8 + 8 + 8 B) of the key-matching lanes, plus 8 B of
     query and 32 B of grid out; there is no arithmetic to speak of, so
     the least time is those bytes (each distinct lane counted once) over
-    3.35 TB/s. Design: one warp per query, its 32 lanes striding the
-    window (W = 32 is one lane each, so the key and alive loads of a
-    warp are one coalesced read of the window), native 64-bit compares
-    (the TPU kernel's 32-bit halves are gone), a warp-shuffle
-    lexicographic max over (ts, gid, ctr, lane) for the winner and a
-    warp-min over dead lanes for ``free_slot``; the probe base is
-    computed in the kernel. Any W ≥ 1 and any power-of-two H ≥ 8 work
-    (the TPU kernel needs W ≤ 128 and H ≥ 256).
+    3.35 TB/s. Design: a group of G threads per query (G = 8 at the
+    default W = 32, at most 32; :meth:`group`), each thread reading a
+    4-lane chunk of the window as two 16-byte key loads and one 32-bit
+    alive load; a
+    grid-stride run of queries per group that fills the card, with the
+    next query's hash and window loads issued before the current one
+    resolves; node/ctr/ts/valh loaded at the match; the writer table
+    staged in shared memory (read from global memory when R > 2048);
+    native 64-bit compares; a width-G shuffle butterfly for the LWW
+    maximum over (ts, gid, ctr, lane) and the lowest dead lane; and the
+    winning lane's thread writing the row as two 16-byte stores from its
+    registers. The probe base is computed in the kernel. Any W ≥ 1 and
+    any power-of-two H ≥ 8 work (the TPU kernel needs W ≤ 128 and
+    H ≥ 256).
 
-    ``launches`` counts launches; the wrapper builds the library at
-    first use and raises on any launch error."""
+    ``launches`` counts launches and ``launches_by_shape`` counts them by
+    Q (the wire tier of the caller's batch); the wrapper builds the
+    library at first use and raises on any launch error."""
 
     name = "probe_lookup"
     source = "delta_crdt_ex_tpu_torch/csrc/probe.cu"
@@ -732,7 +739,19 @@ class ProbeLookupKernel:
 
     def __init__(self) -> None:
         self.launches = 0
+        self.launches_by_shape: dict[int, int] = {}
         self._lib = None
+
+    def reset(self) -> None:
+        """Zero the launch counts."""
+        self.launches = 0
+        self.launches_by_shape = {}
+
+    def group(self, window: int) -> int:
+        """Threads per query the kernel runs for a window of ``window``
+        lanes (``probe_group`` in ``csrc/probe.cu``); chunk c of 4 lanes
+        falls to thread c mod G. Builds the library."""
+        return int(self._load().probe_group(window))
 
     def _load(self):
         if self._lib is None:
@@ -742,6 +761,8 @@ class ProbeLookupKernel:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.probe_lookup.argtypes = [p, i, p, p, p, p, p, p, i, i, p, i, p, p]
             lib.probe_lookup.restype = ctypes.c_int
+            lib.probe_group.argtypes = [i]
+            lib.probe_group.restype = i
             lib.probe_error_string.argtypes = [i]
             lib.probe_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -773,6 +794,8 @@ class ProbeLookupKernel:
                 raise ValueError(f"probe_lookup: {name} has {cols[name][0].shape[0]} lanes, key {H}")
         if H < GROUP or H & (H - 1) or not 1 <= W <= H or R < 1 or H >= NO_FREE:
             raise ValueError(f"probe_lookup: unsupported table (H={H}, W={W}, R={R})")
+        if state.key.data_ptr() % 16 or state.alive.data_ptr() % 4:
+            raise ValueError("probe_lookup: key must start on a 16-byte and alive on a 4-byte boundary")
         out = torch.empty((Q, 8), dtype=torch.int32, device=dev)
         if Q == 0:
             return out
@@ -790,6 +813,7 @@ class ProbeLookupKernel:
                 f"probe_lookup kernel launch failed: {lib.probe_error_string(err).decode()}"
             )
         self.launches += 1
+        self.launches_by_shape[Q] = self.launches_by_shape.get(Q, 0) + 1
         return out
 
 

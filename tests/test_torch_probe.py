@@ -9,8 +9,12 @@ end, dead lanes, several live dots of one key (equal timestamps, so the
 gid and counter tie-breaks decide), top-bit keys and gids, and W = 256
 (past the Pallas kernel's two-row cover).
 
-The CUDA kernel itself runs only on the card: its test here skips, and
-``chip_smoke.py`` holds it against ``probe_lookup_ref`` at full size.
+The CUDA kernel's design (a group of G threads per query, each keeping
+the best of its 4-lane chunks, a width-G shuffle butterfly, the owner
+of the winning lane writing node and valh from its registers) is held
+here as a plain model against ``probe_lookup_ref``. The kernel itself
+runs only on the card: its tests here skip, and ``chip_smoke.py`` holds
+it against ``probe_lookup_ref`` at full size.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from delta_crdt_ex_tpu.models import hash_store as j_hs
 from delta_crdt_ex_tpu.ops import hash_map as j_hm
 from delta_crdt_ex_tpu_torch.models import hash_store as t_hs
 from delta_crdt_ex_tpu_torch.ops import hash_map as t_hm
+from delta_crdt_ex_tpu_torch.utils import probe_tables
 from tests.kernel_harness import HashKernelMap
 
 #: gids with the top bit set, so the unsigned tie-break matters
@@ -154,6 +159,116 @@ def test_cpu_tensors_take_the_plain_version():
         t_hm.probe_lookup_kernel(q, t_state)
 
 
+def _better(a, b) -> bool:
+    """``a`` beats ``b`` under the kernel's order: ts signed, gid
+    unsigned, ctr unsigned, then the lower slot; slot -1 = none."""
+    if a[3] < 0:
+        return False
+    if b[3] < 0:
+        return True
+    if a[:3] != b[:3]:
+        return a[:3] > b[:3]
+    return a[3] < b[3]
+
+
+#: threads per query the model is run at: every group the kernel can pick
+GROUPS = (1, 2, 4, 8, 16, 32)
+
+
+def group_model(q: np.ndarray, state: t_hs.HashStore, G: int) -> np.ndarray:
+    """A plain model of the CUDA kernel's reduction: per query, each of
+    G threads keeps the best of its 4-lane chunks (chunk c on thread
+    c mod G) and its lowest dead lane; a width-G xor butterfly combines
+    them; the thread whose own best is the winner writes the row with
+    its own node and valh, thread 0 when nothing matched. The grid does
+    not depend on G, so the model holds whichever G the kernel picks."""
+    H, W, R = state.table_size, state.probe_window, state.replica_capacity
+    key = state.key.numpy().view(np.uint64)
+    alive = state.alive.numpy()
+    node = state.node.numpy()
+    ctr = state.ctr.numpy().view(np.uint64)
+    ts = state.ts.numpy()
+    valh = state.valh.numpy()
+    gid = state.ctx_gid.numpy().view(np.uint64)
+    base = t_hm.probe_base(torch.from_numpy(q.view(np.int64).copy()), H).numpy()
+    out = np.zeros((len(q), 8), np.int64)
+    for i, kh in enumerate(q.astype(np.uint64)):
+        best = [(0, 0, 0, -1)] * G  # (ts, gid, ctr, slot)
+        mine = [(0, 0)] * G  # (node, valh) of the thread's own best
+        free = [t_hm.NO_FREE] * G
+        for off in range(W):
+            s = int(base[i]) + off
+            if s >= H:
+                break
+            t = (off // 4) % G
+            if not alive[s]:
+                free[t] = min(free[t], s)
+            elif key[s] == kh:
+                nd = int(node[s])
+                c = (int(ts[s]), int(gid[min(max(nd, 0), R - 1)]), int(ctr[s]), s)
+                if _better(c, best[t]):
+                    best[t], mine[t] = c, (nd, int(valh[s]) & 0xFFFFFFFF)
+        own = [b[3] for b in best]
+        d = G // 2
+        while d:
+            best = [o if _better(o, b) else b for b, o in ((best[t], best[t ^ d]) for t in range(G))]
+            free = [min(free[t], free[t ^ d]) for t in range(G)]
+            d //= 2
+        ts_w, gid_w, ctr_w, slot = best[0]
+        assert all(b == best[0] for b in best) and len(set(free)) == 1
+        found = slot >= 0
+        writer = own.index(slot) if found else 0
+        assert own.count(slot) == (1 if found else own.count(-1))
+        nd, vh = mine[writer] if found else (0, 0)
+        u = ts_w & 0xFFFFFFFFFFFFFFFF
+        out[i] = (found, slot if found else -1, nd, (ctr_w & 0xFFFFFFFF) if found else 0, vh,
+                  (u & 0xFFFFFFFF) if found else 0, (u >> 32) if found else 0, free[0])
+    return out.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("seed,capacity,window", [(0, 256, None), (1, 512, None), (2, 256, None),
+                                                  (3, 256, 256), (5, 512, 33), (6, 256, 12)])
+def test_group_reduction_model_matches_plain_grid(seed, capacity, window):
+    st, keys = concurrent_state(seed, capacity, n_keys=40, window=window)
+    q = queries(st, keys, np.random.default_rng(seed))
+    want = grid_ref(st, q)
+    for G in GROUPS:
+        assert np.array_equal(group_model(q, carry(st), G), want), G
+    assert (np.asarray(st.ctx_gid).view(np.uint64) >= 1 << 63).any()
+
+
+@pytest.mark.parametrize("H,W,R", [(256, 32, 8), (256, 12, 8), (256, 33, 8), (256, 1, 8), (256, 128, 8),
+                                   (8, 8, 8), (16, 12, 8), (1024, 32, 2100)])
+def test_group_reduction_model_on_scattered_tables(H, W, R):
+    """Tables whose keys sit anywhere in their windows (so winners fall
+    on every thread of a group), windows that run off or end exactly at
+    the table end, and writer tables past the kernel's shared-memory cap."""
+    st, keys = probe_tables.seeded_table(H, W, max(H // 8, 16), seed=H + W + R, device="cpu", R=R)
+    qk = probe_tables.queries(keys, 256, seed=W)
+    q = qk.numpy().view(np.uint64)
+    want = t_hm.probe_lookup_ref(qk, st).numpy()
+    for G in GROUPS:
+        assert np.array_equal(group_model(q, st, G), want), G
+    found = want[:, 0] == 1
+    base = t_hm.probe_base(qk, H).numpy()
+    assert found.any() and (~found).any()
+    if W >= 8:
+        # winners in an odd 4-lane chunk: off the first thread at every G >= 2
+        assert (((want[found, 1] - base[found]) // 4) % 2 == 1).any()
+    if W % 8 == 0 and H <= 256:
+        assert (base + W == H).any()
+    assert (st.ctx_gid.numpy().view(np.uint64) >= 1 << 63).any()
+
+
+#: shapes where the kernel's design has edges: windows that are not a
+#: multiple of 4 or of the thread group, the smallest tables, a window
+#: ending exactly at the table end (H = W = 8), and writer tables at and
+#: past the kernel's shared-memory cap (2048 entries)
+CUDA_PROBE_SHAPES = [(256, 8, 8), (256, 32, 8), (256, 256, 8), (256, 1, 8), (256, 12, 8),
+                     (256, 33, 8), (8, 1, 8), (8, 5, 8), (8, 8, 8), (16, 12, 8), (16, 16, 8),
+                     (1 << 16, 32, 2048), (1 << 16, 32, 4096)]
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
@@ -167,3 +282,17 @@ def test_cuda_kernel_matches_plain_version():
     got = t_hm.probe_lookup(tq, t_state)
     assert t_hm.probe_lookup_kernel.launches == before + 1
     assert torch.equal(got.cpu(), t_hm.probe_lookup_ref(tq, t_state).cpu())
+    edge = off_first = 0
+    for H, W, R in CUDA_PROBE_SHAPES:
+        st2, keys2 = probe_tables.seeded_table(H, W, max(H // 8, 16), seed=H + W + R, device=dev, R=R)
+        for Q in (8, 2048):
+            qk = probe_tables.queries(keys2, Q, seed=Q + W)
+            got = t_hm.probe_lookup_kernel(qk, st2)
+            want = t_hm.probe_lookup_ref(qk, st2)
+            assert torch.equal(got, want), (H, W, R, Q)
+            base = t_hm.probe_base(qk, H).to(torch.int64)
+            edge += int((base + W == H).sum())
+            found = want[:, 0] == 1
+            G = t_hm.probe_lookup_kernel.group(W)
+            off_first += int((found & ((want[:, 1].to(torch.int64) - base) // 4 % G != 0)).sum())
+    assert edge > 0 and off_first > 0
