@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the full run: phases 1-6
-    python3 chip_smoke.py --keys 131072   # phase 3 at a cut key count
+    python3 chip_smoke.py --keys 131072   # phases 3 and 3b at a cut key count
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -36,9 +36,21 @@ Phases (each raises on failure; any failure exits nonzero):
    last, the kernel against ``probe_lookup_ref`` on each replica's own
    final table (every written key, the removed ones and missing keys),
    the whole int32 grid bit-equal;
-4. a small deterministic script (``threaded=False``, ``LogicalClock``)
-   on ``cuda`` and on ``cpu`` gives identical ``canonical_state_bytes()``;
-   the fan-in of phase 5 at ``bench.py``'s smoke geometry (4096 keys,
+3b. the default replica at the same size: two threaded replicas on
+   ``cuda`` with no ``store=`` (the binned store, L = 4096 buckets ×
+   B = 512 slots at 2^20 keys; ingress coalescing on), the same
+   configuration and steps as phase 3, replica 2 without a diff
+   subscriber (its arrivals counted from its ``SYNC_DONE`` events), plus
+   one full ``read()`` of replica 2 — then equal canonical bytes, reads
+   equal to the written map, every state tensor on the card, grouped
+   ingress dispatches, and neither kernel launched (this path runs
+   none, as in the JAX package);
+4. small deterministic scripts (``threaded=False``, ``LogicalClock``)
+   on ``cuda`` and on ``cpu`` give identical ``canonical_state_bytes()``,
+   diff feeds and ``stats()["ingress"]``: an ``AWLWWMap`` pair on the
+   hash store and on the default store and an ``AWSet`` pair, each with
+   subscribers, and three senders coalescing into one receiver; the
+   fan-in of phase 5 at ``bench.py``'s smoke geometry (4096 keys,
    L = 2^8, B = 64, 4 neighbours, 4 × 128-entry deltas per call, 1 + 2
    calls) gives identical stack columns and roots on both;
 5. the fan-in at full size (``bench.py``'s north star, column layout):
@@ -601,17 +613,203 @@ def phase_slice(n_keys: int, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: cuda vs cpu on a deterministic script
+# phase 3b: the default (binned) replica at full size
 
 
-def deterministic_script(device: str) -> bytes:
+class SyncDoneCount:
+    """``SYNC_DONE`` handler for one replica: the running sum of its
+    ``keys_updated_count`` and when it last moved."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.lock = threading.Lock()
+        self.total = 0
+        self.moved_at = 0.0
+
+    def __call__(self, _event, meas, meta) -> None:
+        if meta["name"] != self.name or not meas["keys_updated_count"]:
+            return
+        with self.lock:
+            self.total += meas["keys_updated_count"]
+            self.moved_at = time.perf_counter()
+
+    def wait(self, total: int, deadline: float, what: str) -> float:
+        """Wait until the sum reaches ``total``; returns when it moved last."""
+        while True:
+            with self.lock:
+                if self.total >= total:
+                    return self.moved_at
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"timed out waiting for {what} ({self.total} of {total})")
+            time.sleep(0.002)
+
+
+def batch_breakdown(r, n_ops: int = 1024) -> dict:
+    """Where one mutation batch of the binned load goes: host-clock
+    times of its steps on ``n_ops`` fresh keys (hashing the terms,
+    grouping by bucket, the uploads, ``row_apply`` enqueued and then
+    finished on the card; the state is read, not replaced), then one
+    whole ``mutate_batch`` of ``n_ops`` other fresh keys under the
+    profiler (it does write them)."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD
+    from delta_crdt_ex_tpu_torch.utils.hashing import key_hash64_batch, value_hash32_batch
+
+    terms = [f"breakdown{i}" for i in range(n_ops)]
+    out: dict = {"ops": n_ops}
+    with r._lock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        key = np.asarray(key_hash64_batch(terms), np.uint64)
+        valh = np.asarray(value_hash32_batch(list(range(n_ops))), np.uint32)
+        t1 = time.perf_counter()
+        g = r.model.group_batch(r.num_buckets, np.full(n_ops, OP_ADD, np.int32), key, valh,
+                                np.arange(n_ops, dtype=np.int64))
+        t2 = time.perf_counter()
+        args = (r._i64_tensor(g.rows), torch.from_numpy(g.op.copy()).to(r.device),
+                r._u64_tensor(g.key), r._i64_tensor(g.valh), r._i64_tensor(g.ts))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        res = r.model.row_apply(r.state, r.self_slot, *args)
+        t4 = time.perf_counter()
+        ok = bool(res.ok)
+        t5 = time.perf_counter()
+        out.update(hash_ms=(t1 - t0) * 1e3, group_ms=(t2 - t1) * 1e3, upload_ms=(t3 - t2) * 1e3,
+                   row_apply_enqueue_ms=(t4 - t3) * 1e3, row_apply_finish_ms=(t5 - t4) * 1e3,
+                   shape=list(g.op.shape), ok=ok)
+    items = [[f"traced{i}", i] for i in range(n_ops)]
+    out["batch_trace"] = trace_call(lambda: r.mutate_batch("add", items))
+    return out
+
+
+def phase_binned(n_keys: int, device_name: str, device: str = "cuda") -> dict:
+    import dataclasses
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime import telemetry
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    t = LocalTransport()
+    arrivals = SyncDoneCount("binned1")
+    telemetry.attach(telemetry.SYNC_DONE, arrivals)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reps = [
+        dc.start_link(dc.AWLWWMap, name=f"binned{i}", transport=t, sync_interval=0.02,
+                      max_sync_size=500, capacity=2 * n_keys, device=device)
+        for i in range(2)
+    ]
+    r1, r2 = reps
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    m: dict = {"keys": n_keys, "buckets": r1.num_buckets, "bin_capacity": r1.state.bin_capacity}
+    try:
+        dc.set_neighbours(r1, [r2])
+        dc.set_neighbours(r2, [r1])
+        probe_lookup_kernel.reset()  # this path's run starts here: it launches neither kernel
+        batched_roots_kernel.reset()
+
+        t0 = time.perf_counter()
+        dc.mutate_batch(r1, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=SLICE_BUDGET_S)
+        m["load_s"] = time.perf_counter() - t0
+        m["converge_s"] = arrivals.wait(n_keys, deadline, f"{n_keys} keys on replica 2") - t0
+        log(f"[binned] {n_keys} keys (L={r1.num_buckets} B={r1.state.bin_capacity}): mutate_batch "
+            f"{m['load_s']:.3f} s, on replica 2 after {m['converge_s']:.3f} s on {device_name}")
+
+        lat = []
+        for i in range(10):
+            base = arrivals.total
+            t1 = time.perf_counter()
+            dc.mutate(r1, "add", [f"prop{i}", i])
+            lat.append(arrivals.wait(base + 1, deadline, f"prop{i}") - t1)
+        m["propagation_ms"] = [x * 1e3 for x in lat]
+        log(f"[binned] 10 single-op propagations (ms): {[round(x * 1e3, 3) for x in lat]} median "
+            f"{float(np.median(lat)) * 1e3:.3f} on {device_name}")
+
+        removed = list(range(0, n_keys, 100))
+        base = arrivals.total
+        t1 = time.perf_counter()
+        dc.mutate_batch(r1, "remove", [[f"key{i}"] for i in removed], timeout=SLICE_BUDGET_S)
+        m["remove_converge_s"] = arrivals.wait(base + len(removed), deadline, "removes on replica 2") - t1
+        log(f"[binned] removed {len(removed)} keys; on replica 2 after {m['remove_converge_s']:.3f} s "
+            f"on {device_name}")
+
+        want = {f"key{i}": i for i in range(n_keys) if i % 100 != 0}
+        want.update({f"prop{i}": i for i in range(10)})
+        probe = [f"key{i}" for i in range(0, n_keys, max(1, n_keys // 4096))][:4096]
+        t1 = time.perf_counter()
+        got2 = dc.read_keys(r2, probe)
+        m["read_keys_ms"] = (time.perf_counter() - t1) * 1e3
+        if got2 != {k: want[k] for k in probe if k in want} or dc.read_keys(r1, probe) != got2:
+            raise AssertionError("binned read_keys disagrees with the written map")
+        t1 = time.perf_counter()
+        full = dc.read(r2)
+        m["read_ms"] = (time.perf_counter() - t1) * 1e3
+        if full != want:
+            raise AssertionError(f"binned read() of replica 2 has {len(full)} keys, not the written map's {len(want)}")
+        log(f"[binned] read_keys {len(probe)} keys on replica 2 {m['read_keys_ms']:.3f} ms; read() of "
+            f"{len(full)} keys {m['read_ms']:.3f} ms; both equal the written map on {device_name}")
+
+        while True:
+            c1, c2 = r1.canonical_state_bytes(), r2.canonical_state_bytes()
+            if c1 == c2:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("binned replicas did not converge to equal canonical bytes")
+            time.sleep(0.1)
+        for r in reps:
+            with r._lock:
+                st = r.state
+            for f in dataclasses.fields(st):
+                if getattr(st, f.name).device.type != device:
+                    raise AssertionError(f"{r.name}: state column {f.name} is not on {device}")
+        m["canonical_bytes"] = len(c1)
+        m["bin_capacity"] = r1.state.bin_capacity
+        m["ingress"] = r2.stats()["ingress"]
+        m["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+        ing = m["ingress"]
+        if ing["dispatches"] == 0 or ing["messages"] < ing["dispatches"]:
+            raise AssertionError(f"replica 2's ingress did not dispatch: {ing}")
+        m["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                         batched_roots_kernel.name: batched_roots_kernel.launches}
+        if any(m["launches"].values()):
+            raise AssertionError(f"a kernel was launched on the binned replica path: {m['launches']}")
+        log(f"[binned] canonical bytes equal ({len(c1)} B); every state column on the card; replica 2 "
+            f"ingress {ing}; kernel launches on this path {m['launches']}; peak memory "
+            f"{m['peak_mem_bytes']} B on {device_name}")
+        if cuda:
+            b = m["batch_breakdown"] = batch_breakdown(r1)
+            tr = b["batch_trace"]
+            log(f"[binned-trace] one {b['ops']}-op batch on replica 1's table (grouped {b['shape']}): hash "
+                f"{b['hash_ms']:.3f} ms, group {b['group_ms']:.3f} ms, upload {b['upload_ms']:.3f} ms, "
+                f"row_apply enqueue {b['row_apply_enqueue_ms']:.3f} ms + finish {b['row_apply_finish_ms']:.3f} "
+                f"ms; one mutate_batch traced: wall {tr['wall_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms "
+                f"(idle share {tr['idle_share']:.4f}), device ms by op "
+                f"{[(k, round(v, 3)) for k, v in tr['ops']]} on {device_name}")
+        return m
+    finally:
+        telemetry.detach(telemetry.SYNC_DONE, arrivals)
+        for r in reps:
+            r.stop()
+
+
+# ---------------------------------------------------------------------------
+# phase 4: cuda vs cpu on deterministic scripts
+
+
+def deterministic_script(device: str, model: str = "AWLWWMap", store: str | None = None) -> bytes:
     import delta_crdt_ex_tpu_torch as dc
     from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
     from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
 
     t, c, feed = LocalTransport(), LogicalClock(), []
     rs = [
-        dc.start_link(dc.AWLWWMap, store="hash", threaded=False, transport=t, clock=c,
+        dc.start_link(getattr(dc, model), store=store, threaded=False, transport=t, clock=c,
                       name=f"det{i}", node_id=(0xF00000000000000B, 7)[i], capacity=64,
                       tree_depth=4, max_sync_size=8, on_diffs=feed.append, device=device,
                       sync_timeout=1e9)  # walk slots clear by message, not by the clock
@@ -620,14 +818,15 @@ def deterministic_script(device: str) -> bytes:
     rs[0].set_neighbours([rs[1]])
     rs[1].set_neighbours([rs[0]])
     g = np.random.default_rng(5)
+    add = (lambda k, v: [k, v]) if rs[0].model.OPS["add"][1] == 2 else (lambda k, v: [k])
     for step in range(10):
         rs[step % 2].mutate_batch(
-            "add", [[f"k{int(x)}", int(g.integers(0, 1000))] for x in g.integers(0, 150, 40)]
+            "add", [add(f"k{int(x)}", int(g.integers(0, 1000))) for x in g.integers(0, 150, 40)]
         )
         for x in g.integers(0, 150, 5):
             rs[step % 2].mutate("remove", [f"k{int(x)}"])
-        rs[0].mutate("add", ["hot", step])
-        rs[1].mutate("add", ["hot", -step])
+        rs[0].mutate("add", add("hot", step))
+        rs[1].mutate("add", add("hot", -step))
         if step == 6:
             rs[1].mutate("clear", [])
         for _ in range(2):
@@ -641,15 +840,97 @@ def deterministic_script(device: str) -> bytes:
     a, b = rs[0].canonical_state_bytes(), rs[1].canonical_state_bytes()
     if a != b:
         raise AssertionError(f"{device}: deterministic pair did not converge")
-    return a + repr(feed).encode()
+    return a + repr(feed).encode() + repr([r.stats()["ingress"] for r in rs]).encode()
+
+
+def keys_for_buckets(lo: int, hi: int, n: int, mask: int, start: int) -> list:
+    """``n`` int key terms whose hash buckets lie in ``[lo, hi)``."""
+    from delta_crdt_ex_tpu_torch.utils.hashing import key_hash64
+
+    out, k = [], start
+    while len(out) < n:
+        if lo <= key_hash64(k) & mask < hi:
+            out.append(k)
+        k += 1
+    return out
+
+
+def coalesced_script(device: str) -> bytes:
+    """Three senders on disjoint bucket ranges push into one receiver
+    without a subscriber; the receiver drains with ``process_pending``,
+    so its merges group. One push is lost on the way, and the next
+    interval of that bucket gaps inside a group."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    t, c, done = LocalTransport(), LogicalClock(), []
+    mk = lambda name, node: dc.start_link(
+        dc.AWLWWMap, threaded=False, transport=t, clock=c, name=name, node_id=node,
+        capacity=512, tree_depth=6, sync_timeout=1e9, device=device,
+    )
+    senders = [mk(f"co{i}", 0xF00000000000000B - i) for i in range(3)]
+    recv = mk("co_recv", 7)
+    for s in senders:
+        s.set_neighbours([recv])
+    keys = [keys_for_buckets(16 * i, 16 * (i + 1), 30, 63, 10_000 * i) for i in range(3)]
+    handler = lambda _e, meas, meta: done.append(meas["keys_updated_count"]) if meta["name"] == "co_recv" else None
+
+    def deliver() -> None:
+        for s in senders:
+            s.sync_to_all()
+        entries = [m for m in t.drain(recv.addr) if isinstance(m, sync_proto.EntriesMsg)]
+        for m in entries:
+            t.send(recv.addr, m)
+        recv.process_pending()
+        for s in senders:  # repairs are answered; walk back-traffic is dropped
+            for m in t.drain(s.addr):
+                if isinstance(m, sync_proto.GetDiffMsg):
+                    s.handle(m)
+
+    telemetry.attach(telemetry.SYNC_DONE, handler)
+    try:
+        for i, s in enumerate(senders):
+            s.mutate_batch("add", [[k, f"v{k}"] for k in keys[i][:20]])
+        deliver()
+        for i, s in enumerate(senders):
+            s.mutate("remove", [keys[i][0]])
+            s.mutate_batch("add", [[k, f"w{k}"] for k in keys[i][20:25]])
+        deliver()
+        k1, k2 = keys_for_buckets(3, 4, 2, 63, 90_000)
+        senders[0].mutate("add", [k1, "one"])
+        senders[0].sync_to_all()
+        t.drain(recv.addr)  # this push is lost
+        senders[0].mutate("add", [k2, "two"])
+        for i in (1, 2):
+            senders[i].mutate("add", [keys[i][26], "late"])
+        deliver()
+        deliver()
+    finally:
+        telemetry.detach(telemetry.SYNC_DONE, handler)
+    ing = recv.stats()["ingress"]
+    want = {k: v for s in senders for k, v in s.read().items()}
+    if recv.read() != want:
+        raise AssertionError(f"{device}: coalesced receiver read differs from its senders'")
+    if max(ing["coalesce_depth_hist"]) < 3 or ing["gap_partitions"] != 1:
+        raise AssertionError(f"{device}: coalesced script formed no deep group or no gap partition: {ing}")
+    return recv.canonical_state_bytes() + repr((ing, done)).encode()
 
 
 def phase_cuda_vs_cpu() -> None:
-    a = deterministic_script("cuda")
-    b = deterministic_script("cpu")
+    for model, store in (("AWLWWMap", "hash"), ("AWLWWMap", None), ("AWSet", None)):
+        a = deterministic_script("cuda", model, store)
+        b = deterministic_script("cpu", model, store)
+        if a != b:
+            raise AssertionError(f"cuda and cpu runs of the deterministic {model} script (store={store}) differ")
+        log(f"[det] {model} store={store or 'default'}: cuda and cpu canonical state + diff feed + "
+            f"ingress stats identical ({len(a)} B)")
+    a, b = coalesced_script("cuda"), coalesced_script("cpu")
     if a != b:
-        raise AssertionError("cuda and cpu runs of the deterministic script differ")
-    log(f"[det] cuda and cpu canonical state + diff feed identical ({len(a)} B)")
+        raise AssertionError("cuda and cpu runs of the coalesced script differ")
+    log(f"[det] three senders coalescing into one receiver, a gap mid-group: cuda and cpu canonical "
+        f"state + ingress stats + SYNC_DONE identical ({len(a)} B)")
 
     from delta_crdt_ex_tpu_torch.models.binned import to_numpy
 
@@ -960,7 +1241,7 @@ def phase_ring_gossip(base) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--keys", type=int, default=1 << 20, help="keys loaded in phase 3")
+    ap.add_argument("--keys", type=int, default=1 << 20, help="keys loaded in phases 3 and 3b")
     args = ap.parse_args()
 
     try:
@@ -997,6 +1278,8 @@ def main() -> int:
     roots = kernel_row(batched_roots_kernel, roots_err, timed["roots"])
     m = phase_slice(args.keys)
     log("[slice-metrics] " + json.dumps(m))
+    b = phase_binned(args.keys, name_power)
+    log("[binned-metrics] " + json.dumps(b))
     probe["launches"] = m["launches"]
     probe["max_abs_err"] = max(probe["max_abs_err"], m["table_max_abs_err"])
     for row in probe["shapes"]:  # the replica path's tables have m["table_size"] lanes

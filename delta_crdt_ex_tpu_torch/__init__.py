@@ -6,11 +6,14 @@ the JAX package (it keeps its own copies of the host-only modules it
 needs), mirrors the JAX package's module layout and names, and runs on
 the GPU unless the caller passes ``device="cpu"``.
 
-Slice 1 ports the hash-store replica path: ``start_link(AWLWWMap,
-store="hash", on_diffs=...)`` → ``mutate``/``mutate_batch`` →
-anti-entropy between neighbours → ``read``/``read_keys``, with the
-probe-window LWW lookup as a hand-written CUDA kernel for Hopper
-(``csrc/probe.cu``). See ``ROADMAP.md`` for what comes next.
+Ported so far: the replica path on both dot stores —
+``start_link(AWLWWMap)`` (the bucket-binned store, ingress coalescing
+on) or ``store="hash"`` → ``mutate``/``mutate_batch`` → anti-entropy
+between neighbours → ``read``/``read_keys``, for ``AWLWWMap``,
+``AWSet`` and ``HashAWSet`` — with the probe-window LWW lookup as a
+hand-written CUDA kernel for Hopper (``csrc/probe.cu``); and the
+binned-store fan-in with the digest-tree roots fold as the second
+(``csrc/roots.cu``). See ``ROADMAP.md`` for what comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (
@@ -24,15 +27,19 @@ from delta_crdt_ex_tpu_torch.api import (
     set_neighbours,
     start_link,
 )
-from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap
+from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
+from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AWLWWMap",
+    "AWSet",
+    "BinnedAWLWWMap",
     "DeltaCrdt",
     "HashAWLWWMap",
+    "HashAWSet",
     "Replica",
     "mutate",
     "mutate_async",

@@ -3,10 +3,10 @@
 ``start_link``, ``set_neighbours``, ``mutate``, ``mutate_async``,
 ``mutate_batch``, ``read``, ``read_keys``.
 
-Example (the reference doctest flow on the hash store)::
+Example (the reference doctest flow, ``delta_crdt.ex:17-28``)::
 
-    crdt1 = start_link(AWLWWMap, store="hash", sync_interval=0.003)
-    crdt2 = start_link(AWLWWMap, store="hash", sync_interval=0.003)
+    crdt1 = start_link(AWLWWMap, sync_interval=0.003)
+    crdt2 = start_link(AWLWWMap, sync_interval=0.003)
     set_neighbours(crdt1, [crdt2])
     set_neighbours(crdt2, [crdt1])
     mutate(crdt1, "add", ["CRDT", "is magic!"])
@@ -21,7 +21,8 @@ from __future__ import annotations
 
 from typing import Any
 
-from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap
+from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
+from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
 DEFAULT_SYNC_INTERVAL = 0.2  # seconds (reference: 200 ms, delta_crdt.ex:31)
@@ -31,25 +32,36 @@ DEFAULT_TIMEOUT = 30.0
 
 DeltaCrdt = Replica  # the handle type users hold
 
+#: the AWLWWMap model — the bucket-binned store, as in the JAX package
+AWLWWMap = BinnedAWLWWMap
+
+#: (store, model) → the same model on the other backend
+_STORE_COUNTERPARTS = {
+    ("hash", BinnedAWLWWMap): HashAWLWWMap,
+    ("hash", AWSet): HashAWSet,
+    ("binned", HashAWLWWMap): BinnedAWLWWMap,
+    ("binned", HashAWSet): AWSet,
+}
+
 
 def _resolve_store(crdt_module, store: "str | None"):
-    """The model class for the requested dot-store backend. Only the
-    hash store is ported: ``store="hash"`` is required, and the default
-    (binned) store raises until its slice lands."""
-    if store not in (None, "hash", "binned"):
+    """Map a model class onto the requested dot-store backend
+    (``delta_crdt_ex_tpu/api.py:44``): ``store="hash"`` selects the
+    open-addressing hash-table store, ``store="binned"`` the
+    bucket-binned rows; ``None`` keeps the model's own backend."""
+    if store is None:
+        return crdt_module
+    if store not in ("hash", "binned"):
         raise ValueError(f"unknown store backend {store!r}; use 'hash' or 'binned'")
-    if store != "hash":
-        raise NotImplementedError(
-            "binned store not yet ported to PyTorch; pass store='hash' "
-            "(the binned store comes with the next slice)"
-        )
-    if crdt_module is not HashAWLWWMap:
-        raise ValueError(f"{crdt_module!r} has no ported hash-store model; use AWLWWMap")
-    return crdt_module
-
-
-#: the AWLWWMap model — in this port only its hash-store form exists
-AWLWWMap = HashAWLWWMap
+    if getattr(crdt_module, "backend", None) == store:
+        return crdt_module
+    try:
+        return _STORE_COUNTERPARTS[(store, crdt_module)]
+    except KeyError:
+        raise ValueError(
+            f"{crdt_module!r} has no {store!r}-store counterpart; pass a "
+            "model class whose backend matches, or omit store="
+        ) from None
 
 
 def start_link(
@@ -59,9 +71,12 @@ def start_link(
     store: "str | None" = None,
     **opts,
 ) -> Replica:
-    """Start a replica (reference ``DeltaCrdt.start_link/2``) on the
-    hash store (``store="hash"``). ``threaded=False`` leaves driving to the caller (``sync_to_all()`` +
-    ``transport.pump()``). ``device`` defaults to ``"cuda"``."""
+    """Start a replica (reference ``DeltaCrdt.start_link/2``).
+    ``store`` selects the dot-store backend (``"binned"``, the default
+    model's, or ``"hash"``). ``threaded=False`` leaves driving to the
+    caller (``sync_to_all()`` + ``transport.pump()``, or
+    ``process_pending()`` for coalesced ingress). ``device`` defaults
+    to ``"cuda"``."""
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     replica = Replica(_resolve_store(crdt_module, store), **opts)

@@ -1,10 +1,11 @@
-"""The model seam of the binned store — the part of
-``delta_crdt_ex_tpu/models/binned_map.py`` the port runs so far: batch
-grouping, the delta-interval gap error, the wire fan-in that combines
-several EntriesMsg bodies into one slice, and the host's merge loops
-(:func:`tier_retry_merge`, :func:`merge_into`, :func:`merge_rows_into`)
-that own the growth policy. ``BinnedAWLWWMap``/``AWSet`` come with the
-binned replica slice (``ROADMAP.md``).
+"""The model seam of the binned store — the PyTorch port of
+``delta_crdt_ex_tpu/models/binned_map.py``: batch grouping, the
+delta-interval gap error, the wire fan-in that combines several
+EntriesMsg bodies into one slice, the host's merge loops
+(:func:`tier_retry_merge`, :func:`merge_into`, :func:`merge_rows_into`,
+:func:`merge_group_into`) that own the growth policy, and the model
+classes the replica runtime is generic over: :class:`BinnedAWLWWMap`
+(the default ``AWLWWMap``) and :class:`AWSet`.
 
 Batch grouping and the fan-in stay host numpy (they shape the wire and
 the kernel inputs exactly as the JAX package does); the combined slice
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from delta_crdt_ex_tpu_torch.models.binned import BinnedStore, pow2_tier as _pow2, pow4_tier as _pow4
-from delta_crdt_ex_tpu_torch.ops.apply import OP_PAD
+from delta_crdt_ex_tpu_torch.ops import binned as binned_ops
+from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import (
     RowSlice,
     compact_rows,
@@ -312,3 +314,152 @@ def combine_entry_arrays(arrays_list: list, device) -> "tuple[RowSlice, list]":
         device,
     )
     return sl, offsets
+
+
+def grouped_merge(merge_rows_into_fn, state, arrays_list: list, on_grow=None):
+    """Combine k compatible EntriesMsg bodies (:func:`combine_entry_arrays`)
+    and join them with ONE ``merge_rows_into_fn`` call. Returns
+    ``(new_state, result, offsets)``; a :class:`CtxGapError` carries
+    ``gapped_members``, the members whose rows the kernel's per-row gap
+    mask names, so the caller replays only those solo."""
+    sl, offsets = combine_entry_arrays(arrays_list, state.device)
+    try:
+        new_state, res = merge_rows_into_fn(state, sl, on_grow=on_grow)
+    except CtxGapError as err:
+        if err.gap_rows is not None:
+            err.gapped_members = {
+                i for i, (lo, hi) in enumerate(offsets) if bool(err.gap_rows[lo:hi].any())
+            }
+        raise
+    return new_state, res, offsets
+
+
+def merge_group_into(state: BinnedStore, arrays_list: list, on_grow=None):
+    """The grouped fan-in merge of the replica's ingress coalescing
+    (``binned_map.py:417``): one row-granular :func:`merge_rows_into`
+    dispatch for a whole group of disjoint-row slices."""
+    return grouped_merge(merge_rows_into, state, arrays_list, on_grow=on_grow)
+
+
+def _later_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet; it comes with a later slice (ROADMAP.md queue 1)"
+    )
+
+
+class BinnedAWLWWMap:
+    """Model class: the AWLWWMap op vocabulary over :class:`BinnedStore`
+    (``binned_map.py:470``) — the default ``crdt_module`` of the port's
+    replica runtime."""
+
+    #: mutation name → (op code, arity of user args)
+    OPS = {
+        "add": (OP_ADD, 2),  # add(key, value)    aw_lww_map.ex:99
+        "remove": (OP_REMOVE, 1),  # remove(key)  aw_lww_map.ex:133
+        "clear": (OP_CLEAR, 0),  # clear()        aw_lww_map.ex:148
+    }
+
+    Store = BinnedStore
+    new = staticmethod(BinnedStore.new)
+    group_batch = staticmethod(group_batch)
+    row_apply = staticmethod(binned_ops.row_apply)
+    clear_all = staticmethod(binned_ops.clear_all)
+    merge_slice = staticmethod(binned_ops.merge_slice)
+    merge_rows = staticmethod(binned_ops.merge_rows)
+    extract_rows = staticmethod(binned_ops.extract_rows)
+    extract_own_delta = staticmethod(binned_ops.extract_own_delta)
+    winners_for_keys = staticmethod(binned_ops.winners_for_keys)
+    winner_rows = staticmethod(binned_ops.winner_rows)
+    winner_all = staticmethod(binned_ops.winner_all)
+    compact_rows = staticmethod(binned_ops.compact_rows)
+    tree_from_leaves = staticmethod(binned_ops.tree_from_leaves)
+    merge_into = staticmethod(merge_into)
+    merge_rows_into = staticmethod(merge_rows_into)
+    merge_group_into = staticmethod(merge_group_into)
+    combine_entry_arrays = staticmethod(combine_entry_arrays)
+    RowSlice = RowSlice
+
+    @staticmethod
+    def read_view(d: dict):
+        """The resolved winner dict in this model's read form (the map:
+        identity; :class:`AWSet` overrides it)."""
+        return d
+
+    #: store backend tag (``api._resolve_store`` maps models across it)
+    backend = "binned"
+    #: static (non-tensor) Store fields — none for this backend
+    STORE_META = ()
+
+    @staticmethod
+    def grow_for_apply(state: BinnedStore) -> BinnedStore:
+        """Local-mutation overflow escape: bin tier ×2."""
+        return state.grow(bin_capacity=state.bin_capacity * 2)
+
+    @staticmethod
+    def post_apply(state: BinnedStore, res, on_grow=None) -> BinnedStore:
+        """Post-commit hook (no load advisory for the binned store)."""
+        return state
+
+    @staticmethod
+    def load_high(max_window_fill: int, probe_window: int) -> bool:
+        """No growth advisory: bins grow through the per-merge
+        ``need_fill_grow`` escape only."""
+        return False
+
+    @staticmethod
+    def store_load_high(state: BinnedStore) -> bool:
+        return False
+
+    @staticmethod
+    def geometry(state: BinnedStore) -> tuple:
+        """Batch-compatibility key: the bin tier B splits fleet batches."""
+        return ("binned", state.num_buckets, state.bin_capacity, state.replica_capacity)
+
+    @staticmethod
+    def geometry_stacked(stacked) -> tuple:
+        """The same key read from a stacked store's shapes."""
+        return ("binned", stacked.key.shape[1], stacked.key.shape[2], stacked.ctx_gid.shape[1])
+
+    # the fleet and mesh seams of the JAX model (its vmapped and
+    # shard_mapped batched forms) come with their slices
+
+    @classmethod
+    def fleet_merge_rows(cls, states, slices):
+        raise _later_slice("the fleet batched merge (the fleets slice)")
+
+    @classmethod
+    def fleet_extract_rows(cls, states, rows):
+        raise _later_slice("the fleet batched extraction (the fleets slice)")
+
+    @classmethod
+    def fleet_extract_own_delta(cls, states, rows, self_slots, gid_selfs, lo):
+        raise _later_slice("the fleet batched delta extraction (the fleets slice)")
+
+    @classmethod
+    def mesh_fleet_merge_rows(cls, mesh, states, slices):
+        raise _later_slice("the mesh-sharded fleet merge (the multi-device mesh slice)")
+
+    @classmethod
+    def mesh_fleet_extract_rows(cls, mesh, states, rows):
+        raise _later_slice("the mesh-sharded fleet extraction (the multi-device mesh slice)")
+
+    @classmethod
+    def mesh_fleet_extract_own_delta(cls, mesh, states, rows, self_slots, gid_selfs, lo):
+        raise _later_slice("the mesh-sharded fleet delta extraction (the multi-device mesh slice)")
+
+
+class AWSet(BinnedAWLWWMap):
+    """Add-wins observed-remove set over the same kernel table
+    (``binned_map.py:627``): an element is a key whose stored value is
+    ``True``; ``read`` returns the member set, diffs feed as
+    ``("add", elem, True)`` / ``("remove", elem)``."""
+
+    OPS = {
+        "add": (OP_ADD, 1),  # add(elem)
+        "remove": (OP_REMOVE, 1),  # remove(elem)
+        "clear": (OP_CLEAR, 0),  # clear()
+    }
+
+    @staticmethod
+    def read_view(d: dict):
+        return set(d)

@@ -275,20 +275,9 @@ def merge_rows_into(state: HashStore, sl, on_grow=None):
 def merge_group_into(state: HashStore, arrays_list: list, on_grow=None):
     """Grouped fan-in merge over the hash table (one combined slice, one
     merge, ``gapped_members`` mapped through member offsets)."""
-    from delta_crdt_ex_tpu_torch.models.binned_map import CtxGapError, combine_entry_arrays
+    from delta_crdt_ex_tpu_torch.models.binned_map import grouped_merge
 
-    sl, offsets = combine_entry_arrays(arrays_list, state.device)
-    try:
-        new_state, res = merge_rows_into(state, sl, on_grow=on_grow)
-    except CtxGapError as err:
-        if err.gap_rows is not None:
-            err.gapped_members = {
-                i
-                for i, (lo, hi) in enumerate(offsets)
-                if bool(err.gap_rows[lo:hi].any())
-            }
-        raise
-    return new_state, res, offsets
+    return grouped_merge(merge_rows_into, state, arrays_list, on_grow=on_grow)
 
 
 def _dense_lanes(counts) -> int:
@@ -332,6 +321,8 @@ class HashAWLWWMap:
         "clear": (OP_CLEAR, 0),
     }
 
+    #: store backend tag (``api._resolve_store`` maps models across it)
+    backend = "hash"
     new = staticmethod(HashStore.new)
     merge_rows_into = staticmethod(merge_rows_into)
     merge_group_into = staticmethod(merge_group_into)
@@ -384,3 +375,18 @@ class HashAWLWWMap:
             state.probe_window,
         )
 
+
+class HashAWSet(HashAWLWWMap):
+    """Add-wins observed-remove set over the hash store
+    (``hash_store.py:565``): the ``AWSet``/``BinnedAWLWWMap``
+    relationship on the hash backend."""
+
+    OPS = {
+        "add": (OP_ADD, 1),
+        "remove": (OP_REMOVE, 1),
+        "clear": (OP_CLEAR, 0),
+    }
+
+    @staticmethod
+    def read_view(d: dict):
+        return set(d)

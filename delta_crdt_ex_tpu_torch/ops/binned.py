@@ -8,19 +8,23 @@
 - the bulk fan-in path's store ops: :func:`merge_slice` (the
   element-scatter merge, both its uncompacted and its ``top_k``
   compacted branch), :func:`merge_rows` and :func:`extract_rows` (the
-  row-granular pair ring gossip uses), :func:`compact_rows`,
-  :func:`init_from_columns` and :func:`flagged_first_order`.
+  row-granular pair ring gossip and the replica's ingress use),
+  :func:`compact_rows`, :func:`init_from_columns` and
+  :func:`flagged_first_order`;
+- the binned replica's local-mutation and read ops: :func:`row_apply`,
+  :func:`clear_all`, :func:`extract_own_delta` (the eager delta push),
+  :func:`winners_for_keys`, :func:`winner_all` and :func:`winner_rows`.
 
-The local-mutation and read ops of the binned replica (``row_apply``,
-``clear_all``, ``extract_own_delta``, ``winners_for_keys``,
-``winner_all``, ``winner_rows``) are the next slice (``ROADMAP.md``).
-
-The neighbour axis. The JAX package batches neighbours with
-``jax.vmap``; here every store op takes a :class:`BinnedStore` whose
-columns have a leading lane axis (``[N, L, B]``) as well as a single
-state, and a slice that is either shared by every lane (``[U, S]``) or
-one per lane (``[N, U, S]``). A single state runs as one lane, so a
-lane of a stacked merge and a solo merge are the same arithmetic.
+The neighbour axis. The JAX package batches neighbours and fleet
+members with ``jax.vmap``; here every op it vmaps (the merges,
+:func:`extract_rows`, :func:`row_apply`, :func:`extract_own_delta`,
+:func:`winner_all`, :func:`compact_rows`, :func:`clear_all`) takes a
+:class:`BinnedStore` whose columns have a leading lane axis
+(``[N, L, B]``) as well as a single state, with per-lane arguments
+(``[N, ...]``) or, for a merge, a slice shared by every lane
+(``[U, S]``). A single state runs as one lane, so a lane of a stacked
+call and a solo call are the same arithmetic. The point reads
+(:func:`winners_for_keys`, :func:`winner_rows`) take one state.
 
 No op writes into its inputs. A merge that reports ``ok=False`` is
 re-run by the host on the pre-merge state (``tier_retry_merge``), so
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore, map_columns
+from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
 
 _LONG = torch.int64
@@ -122,6 +127,13 @@ def _table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     The JAX package unrolls this into selects for the TPU; a gather is
     the same function."""
     return table[idx.to(torch.int64)]
+
+
+def _row_table_lookup(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(tbl, idx, axis=-1)`` for a small trailing axis
+    (``ops/binned.py:115``; ``idx`` clipped to range): the same gather
+    the JAX package unrolls into selects."""
+    return torch.gather(tbl, -1, idx.to(torch.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +327,7 @@ def _slice_view_b(ctx_gid: torch.Tensor, ctx_max: torch.Tensor, sl: RowSlice) ->
     ln = torch.gather(remap_u, -1, sl.node.clamp(0, rr - 1).to(_LONG))
     ln_clip = ln.clamp(0, R - 1)
     local_ctx = ctx_max[_lanes(n, dev), rows_clip]  # [N, U, R]
-    covered_local = torch.gather(local_ctx, -1, ln_clip) >= sl.ctr
+    covered_local = _row_table_lookup(local_ctx, ln_clip) >= sl.ctr
     ins = sl.alive & valid[..., None] & ~covered_local & (ln >= 0)
     # delta-interval contiguity: advancing ctx to hi is only sound if our
     # context already reaches lo
@@ -384,18 +396,64 @@ def _sorted_winners(key, ts, gid, ctr, alive, valh) -> RowWinners:
     the last entry of its key-run. Torch has no multi-key sort, so the
     order is built from stable sorts, least significant key first."""
     t, g, c = _lww_rank(ts, gid, ctr, alive)
-    perm = torch.arange(key.shape[1], device=key.device).expand(key.shape).contiguous()
+    perm = torch.arange(key.shape[-1], device=key.device).expand(key.shape).contiguous()
     for k in (c, _flip(g), t, _flip(key)):
-        _, o = torch.sort(torch.gather(k, 1, perm), dim=1, stable=True)
-        perm = torch.gather(perm, 1, o)
+        _, o = torch.sort(torch.gather(k, -1, perm), dim=-1, stable=True)
+        perm = torch.gather(perm, -1, o)
     key_s, t_s, g_s, c_s, alive_s, valh_s = (
-        torch.gather(a, 1, perm) for a in (key, t, g, c, alive, valh)
+        torch.gather(a, -1, perm) for a in (key, t, g, c, alive, valh)
     )
     run_last = torch.cat(
-        [key_s[:, :-1] != key_s[:, 1:], torch.ones_like(key_s[:, :1], dtype=torch.bool)],
-        dim=1,
+        [key_s[..., :-1] != key_s[..., 1:], torch.ones_like(key_s[..., :1], dtype=torch.bool)],
+        dim=-1,
     )
     return RowWinners(alive_s & run_last, key_s, g_s, c_s, valh_s, t_s)
+
+
+def winners_for_keys(state: BinnedStore, khash: torch.Tensor) -> KeyWinners:
+    """LWW winner per queried key hash (``ops/binned.py:937``;
+    ``AWLWWMap.read/2``, ``aw_lww_map.ex:218-224``): each key's bucket
+    row, its alive same-key entries, their lexicographic (ts, gid, ctr)
+    maximum. ``khash`` is int64[K] (uint64 bits); a missing key reads
+    ``found=False`` with the row's slot 0 in the other fields."""
+    rows = state.bucket_of(khash)
+    g_ts = state.ts[rows]
+    g_key = state.key[rows]
+    g_alive = state.alive[rows] & (g_key == khash[:, None])
+    g_gid = _table_lookup(state.ctx_gid, state.node[rows].clamp(0, state.replica_capacity - 1))
+    g_ctr = state.ctr[rows]
+    best = _argmax_lww(g_ts, g_gid, g_ctr, g_alive)
+    take = lambda a: torch.gather(a, 1, best)[:, 0]
+    return KeyWinners(
+        found=take(g_alive),
+        gid=take(g_gid),
+        ctr=take(g_ctr),
+        valh=take(state.valh[rows]),
+        ts=take(g_ts),
+    )
+
+
+def winner_all(state: BinnedStore) -> RowWinners:
+    """Whole-table LWW winners (``ops/binned.py:983``): the full-map
+    read path sorts every row of the table at once, no row gather.
+    Single or stacked; callers select by ``win``, never by position."""
+    gid = dataclasses.replace(state, node=state.node.clamp(0, state.replica_capacity - 1)).entry_gid()
+    return _sorted_winners(state.key, state.ts, gid, state.ctr, state.alive, state.valh)
+
+
+def winner_rows(state: BinnedStore, rows: torch.Tensor) -> RowWinners:
+    """Per-key LWW winners within the given bucket rows
+    (``ops/binned.py:997``; -1 pads): :func:`_sorted_winners` over the
+    gathered rows. An entry wins iff no other alive same-key entry of
+    its row ranks higher (keys never span rows). Callers select by
+    ``win``, never by position."""
+    valid = rows >= 0
+    rows_clip = rows.clamp(0, state.num_buckets - 1)
+    take = lambda c: getattr(state, c)[rows_clip]
+    gid = _table_lookup(state.ctx_gid, take("node").clamp(0, state.replica_capacity - 1))
+    return _sorted_winners(
+        take("key"), take("ts"), gid, take("ctr"), take("alive") & valid[:, None], take("valh")
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +513,29 @@ def _row_compact(cols: dict, alive: torch.Tensor):
 _ROW_COLS = ("key", "valh", "ts", "node", "ctr", "ehash")
 
 
+def _gather_rows(state: BinnedStore, lanes: torch.Tensor, rows_clip: torch.Tensor) -> dict:
+    """The entry columns of the given rows of every lane
+    (``ops/binned.py:193``): ``[N, U, B]`` from ``rows_clip`` ``[N, U]``."""
+    return {c: getattr(state, c)[lanes, rows_clip] for c in _ROW_COLS}
+
+
+def _lane_args(state: BinnedStore, *args):
+    """``(state with a lane axis, whether one was added, args)``: each
+    argument gains the same leading lane axis as the state (a Python
+    int or 0-d tensor is broadcast to one value per lane)."""
+    st, single = _with_lanes(state)
+    n = st.key.shape[0]
+    out = []
+    for a in args:
+        t = torch.as_tensor(a, device=st.device)
+        if t.dim() == 0:
+            t = t.to(_LONG).expand(n)
+        elif single:
+            t = t.unsqueeze(0)
+        out.append(t)
+    return st, single, out
+
+
 def _leaf_sum(alive: torch.Tensor, ehash: torch.Tensor) -> torch.Tensor:
     """Wrapping uint32 sum of the alive entry hashes of each row."""
     return torch.where(alive, ehash, 0).sum(-1) & M32
@@ -488,6 +569,148 @@ def init_from_columns(state: BinnedStore) -> BinnedStore:
 
 
 # ---------------------------------------------------------------------------
+# local mutation batch
+
+
+class RowApplyResult(NamedTuple):
+    """``ops/binned.py:201``; each field has a leading lane axis for a
+    stacked state."""
+
+    state: BinnedStore
+    ok: torch.Tensor  # bool: every touched row had bin space
+    ctr_assigned: torch.Tensor  # int64[U, M] (uint32) dot counter per add op
+    n_keys_changed: torch.Tensor  # int64 (telemetry keys_updated_count)
+    row_killed: torch.Tensor  # bool[U]: row lost a pre-batch entry
+
+
+def _row_apply_b(state: BinnedStore, self_slot, rows, op, key, valh, ts) -> RowApplyResult:
+    n, L, B = state.key.shape
+    R = state.replica_capacity
+    m = op.shape[-1]
+    dev = state.device
+    lanes = _lanes(n, dev)
+    ss = self_slot[:, None]  # [N, 1]
+
+    valid = rows >= 0
+    rows_safe = torch.where(valid, rows, L)  # L: gathers clip, scatters drop
+    rows_clip = rows_safe.clamp(0, L - 1)
+    g = _gather_rows(state, lanes, rows_clip)
+    galive = state.alive[lanes, rows_clip] & valid[..., None]
+
+    is_add = (op == OP_ADD) & valid[..., None]
+    is_touch = is_add | ((op == OP_REMOVE) & valid[..., None])
+    touch_j = is_touch[..., None, :]  # [N, U, 1, M]: the touching op m'
+
+    # fresh dot counters: one contiguous sequence per (replica, bucket),
+    # wrapping in uint32
+    base = state.ctx_max[lanes, rows_clip, ss]  # [N, U] own max per bucket
+    ctr_assigned = (base[..., None] + torch.cumsum(is_add.to(_LONG), -1)) & M32
+
+    # batch-internal shadowing: a later same-key touch kills op (u, m)
+    later = torch.ones((m, m), dtype=torch.bool, device=dev).triu(1)
+    key_eq = key[..., :, None] == key[..., None, :]  # [N, U, M, M]
+    ins = is_add & ~(key_eq & later & touch_j).any(-1)
+
+    # pre-batch kills: every alive entry whose key any batch op touches
+    hit = ((g["key"][..., :, None] == key[..., None, :]) & touch_j).any(-1)  # [N, U, B]
+    killed = galive & hit
+    alive1 = galive & ~hit
+
+    # insert into the lowest free slots of each row: slot_of_rank[r] is
+    # the r-th free slot (B past the last; column B takes the writes of
+    # occupied slots and is cut off)
+    free = ~alive1
+    free_rank = torch.cumsum(free.to(_LONG), -1) - 1
+    slot_of_rank = torch.full((*free.shape[:-1], B + 1), B, dtype=_LONG, device=dev)
+    slot_of_rank.scatter_(-1, torch.where(free, free_rank, B), torch.arange(B, device=dev).expand(free.shape))
+    ins_rank = torch.cumsum(ins.to(_LONG), -1) - 1
+    ok = (ins.sum(-1) <= free.sum(-1)).all(-1)
+    tgt_b = torch.where(ins, torch.gather(slot_of_rank, -1, ins_rank.clamp(0, B - 1)), B)
+
+    gid_self = torch.gather(state.ctx_gid, -1, ss)[..., None]  # [N, 1, 1]
+    eh = entry_hash(key, gid_self, ctr_assigned, ts, valh)
+    node_new = ss[..., None].expand(op.shape)
+
+    def put(col, vals):
+        # col.at[u, tgt_b].set(vals, mode="drop") on gathered rows
+        e = torch.cat([col, col[..., :1]], -1)
+        e.scatter_(-1, tgt_b, vals.to(col.dtype).expand(tgt_b.shape))
+        return e[..., :B]
+
+    cols = {
+        "key": put(g["key"], key),
+        "valh": put(g["valh"], valh),
+        "ts": put(g["ts"], ts),
+        "node": put(g["node"], node_new),
+        "ctr": put(g["ctr"], ctr_assigned),
+        "ehash": put(g["ehash"], eh),
+    }
+    alive2 = put(alive1, torch.ones((), dtype=torch.bool, device=dev))
+
+    # repack rows (free in-row compaction: rows are rewritten anyway)
+    packed, alive_p, fill_rows = _row_compact(cols, alive2)
+    own_max = torch.where(ins, ctr_assigned, 0).amax(-1)  # [N, U]
+    ctx_e = _ext(state.ctx_max)
+    ctx_e.scatter_reduce_(1, torch.where(rows_safe < L, rows_safe * R + ss, L * R), own_max, "amax")
+
+    rs = rows_safe
+    new_state = BinnedStore(
+        **{c: _set_rows(getattr(state, c), rs, packed[c]) for c in _ROW_COLS},
+        alive=_set_rows(state.alive, rs, alive_p),
+        fill=_set_rows(state.fill, rs, fill_rows, True),
+        amin=_set_rows(state.amin, rs, _row_amin(packed["node"], packed["ctr"], alive_p, R), True),
+        amax=_set_rows(state.amax, rs, _row_amax(packed["node"], packed["ctr"], alive_p, R), True),
+        leaf=_set_rows(state.leaf, rs, _leaf_sum(alive_p, packed["ehash"]), True),
+        ctx_gid=state.ctx_gid,
+        ctx_max=_unext(ctx_e, state.ctx_max.shape, contiguous=True),
+    )
+
+    # telemetry: distinct keys whose dot store changed (first-occurrence
+    # op marks; key sets of distinct rows are disjoint)
+    earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
+    first_occ = ~(key_eq & earlier & touch_j).any(-1)
+    killed_any = ((key[..., :, None] == g["key"][..., None, :]) & galive[..., None, :]).any(-1)
+    changed = is_touch & first_occ & (ins | killed_any)
+    return RowApplyResult(new_state, ok, ctr_assigned, changed.sum((-2, -1)), killed.any(-1))
+
+
+def row_apply(state: BinnedStore, self_slot, rows, op, key, valh, ts) -> RowApplyResult:
+    """Apply a bucket-grouped local mutation batch with sequential
+    semantics (``ops/binned.py:210``): within a row a later op shadows
+    earlier same-key ops, every pre-batch same-key entry dies (a local
+    op observes all local dots), adds take the row's lowest free slots
+    with fresh per-(writer, bucket) counters, and touched rows are
+    repacked. ``ok=False`` means a row ran out of bin space: the host
+    grows the bin tier and re-runs on the same state. ``clear`` is
+    :func:`clear_all`.
+
+    ``rows`` is int64[U] (-1 pads), ``op`` int32[U, M] (``OP_PAD``
+    pads), ``key``/``valh``/``ts`` int64[U, M]; for a stacked state each
+    gains a leading lane axis and ``self_slot`` is one slot per lane.
+    Never writes into its inputs."""
+    st, single, (slots, rows, op, key, valh, ts) = _lane_args(
+        state, self_slot, rows, op, key, valh, ts
+    )
+    res = _row_apply_b(st, slots.to(_LONG), rows.to(_LONG), op, key, valh, ts)
+    return _lane0(res) if single else res
+
+
+def clear_all(state: BinnedStore) -> BinnedStore:
+    """Kill every observed dot (``ops/binned.py:333``; ``AWLWWMap.clear``,
+    ``aw_lww_map.ex:148-150``): entries die, the context stays, so the
+    clear propagates as coverage and unobserved remote dots survive.
+    Single or stacked."""
+    return dataclasses.replace(
+        state,
+        alive=torch.zeros_like(state.alive),
+        fill=torch.zeros_like(state.fill),
+        amin=torch.full_like(state.amin, U32_MAX),
+        amax=torch.zeros_like(state.amax),
+        leaf=torch.zeros_like(state.leaf),
+    )
+
+
+# ---------------------------------------------------------------------------
 # the row-granular pair: extraction and merge
 
 
@@ -511,6 +734,50 @@ def extract_rows(state: BinnedStore, rows: torch.Tensor) -> RowSlice:
         ctx_lo=torch.zeros_like(ctx_rows),
         ctx_gid=state.ctx_gid,
     )
+
+
+def _extract_own_delta_b(state: BinnedStore, rows, self_slot, gid_self, lo) -> RowSlice:
+    n, L, _ = state.key.shape
+    lanes = _lanes(n, state.device)
+    ss = self_slot[:, None]
+    valid = rows >= 0
+    rows_clip = rows.clamp(0, L - 1)
+    g = _gather_rows(state, lanes, rows_clip)
+    alive = (
+        state.alive[lanes, rows_clip]
+        & valid[..., None]
+        & (g["node"] == ss[..., None])
+        & (g["ctr"] > lo[..., None])
+    )
+    hi = state.ctx_max[lanes, rows_clip, ss] * valid
+    return RowSlice(
+        rows=rows,
+        key=g["key"],
+        valh=g["valh"],
+        ts=g["ts"],
+        node=torch.zeros_like(g["node"]),
+        ctr=g["ctr"],
+        alive=alive,
+        ctx_rows=hi[..., None],
+        ctx_lo=(lo * valid)[..., None],
+        ctx_gid=gid_self[:, None],
+    )
+
+
+def extract_own_delta(state: BinnedStore, rows, self_slot, gid_self, lo) -> RowSlice:
+    """An OWN-writer delta-interval slice (``ops/binned.py:404``): this
+    replica's alive entries of each row with counter in ``(lo, ctx_max]``,
+    claiming exactly that interval (Almeida et al.'s delta mode, the
+    eager push). Minted-but-superseded counters inside the interval read
+    as observed removes. The writer table is ``[gid_self]`` and the
+    shipped node column is 0.
+
+    ``rows`` int64[U] (-1 pads), ``self_slot`` and ``gid_self`` (int64
+    bits) scalars, ``lo`` int64[U] (uint32); for a stacked state one of
+    each per lane."""
+    st, single, (slots, gids, rows, lo) = _lane_args(state, self_slot, gid_self, rows, lo)
+    res = _extract_own_delta_b(st, rows.to(_LONG), slots.to(_LONG), gids, lo)
+    return _lane0(res) if single else res
 
 
 class MergeRowsResult(NamedTuple):
@@ -537,7 +804,7 @@ def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
     lanes = _lanes(n, state.device)
 
     v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
-    g = {c: getattr(state, c)[lanes, v.rows_clip] for c in _ROW_COLS}  # [N, U, B]
+    g = _gather_rows(state, lanes, v.rows_clip)  # [N, U, B]
     galive = state.alive[lanes, v.rows_clip] & v.valid[..., None]
     gnode = g["node"].to(_LONG)
 
@@ -545,8 +812,8 @@ def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
     # the interval covers it and the slice does not carry it. Presence
     # compares packed dots: node << 32 | ctr is equal exactly when both
     # parts are, and -1 (no slice entry) matches no local dot
-    covered = (torch.gather(v.rdense, -1, gnode) >= g["ctr"]) & (
-        torch.gather(v.ldense, -1, gnode) < g["ctr"]
+    covered = (_row_table_lookup(v.rdense, gnode) >= g["ctr"]) & (
+        _row_table_lookup(v.ldense, gnode) < g["ctr"]
     )
     r_ok = sl.alive & (v.ln >= 0)
     r_dot = torch.where(r_ok, encode_dot(v.ln_clip, sl.ctr), -1)

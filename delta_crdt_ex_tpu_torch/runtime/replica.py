@@ -1,6 +1,8 @@
 """Replica driver — the host actor owning one device-resident CRDT state;
-the PyTorch port of ``delta_crdt_ex_tpu/runtime/replica.py``, trimmed
-to the hash-store slice.
+the PyTorch port of ``delta_crdt_ex_tpu/runtime/replica.py``, on either
+dot store: the bucket-binned store (``BinnedAWLWWMap``, the default
+model, and ``AWSet``) or the open-addressing hash store
+(``HashAWLWWMap``, ``HashAWSet``).
 
 Counterpart of the reference's ``DeltaCrdt.CausalCrdt`` GenServer: the
 driver serialises every state transition through a lock and issues
@@ -9,22 +11,28 @@ carries, line for line the JAX replica's semantics:
 
 - ``mutate`` / ``mutate_async`` / ``mutate_batch`` → a queued mutation
   batch flushed before any read or sync;
-- the ``on_diffs`` change feed with the reference's emission rules (the
-  before/after winner passes go through the probe-window kernel);
-- ``read`` (incrementally maintained read cache) / ``read_keys`` (the
-  probe-window kernel) / ``read_items`` / ``canonical_state_bytes``;
+- the ``on_diffs`` change feed with the reference's emission rules (on
+  the hash store the before/after winner passes go through the
+  probe-window kernel);
+- ``read`` (incrementally maintained read cache) / ``read_keys`` /
+  ``read_items`` / ``canonical_state_bytes``;
 - anti-entropy: eager own-delta pushes, full-row pushes of kill-touched
   rows, and the digest-tree walk with ≤ 1 in-flight round per
   neighbour, over the same wire messages as the JAX package;
+- ingress coalescing: ``process_pending`` drains the mailbox in
+  bounded batches and joins each run of compatible ``EntriesMsg``s
+  with one grouped merge, ``SYNC_DONE`` readbacks deferred to the end
+  of the drain;
 - neighbour monitoring, host payload gc, ``SYNC_DONE`` /
-  ``SYNC_ROUND`` / ``CAPACITY_GROWN`` telemetry, the threaded loop.
+  ``SYNC_ROUND`` / ``CAPACITY_GROWN`` / ``INGEST_COALESCE`` telemetry,
+  the threaded loop.
 
-WAL and storage, log shipping, ingress coalescing, fleets, tree gossip,
-serving, the observability plane, fault injection and the device mesh
-wait for later slices: their options raise ``NotImplementedError``
-naming the slice (:data:`LATER_OPTIONS`). Sync slices always travel on
-the host plane (numpy ``EntriesMsg`` bodies in the JAX package's
-dtypes), so the wire stays the JAX package's.
+WAL and storage, log shipping, fleets, tree gossip, serving, the
+observability plane, fault injection and the device mesh wait for
+later slices: their options raise ``NotImplementedError`` naming the
+slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host
+plane (numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the
+wire stays the JAX package's and every one of them may coalesce.
 """
 
 from __future__ import annotations
@@ -39,8 +47,7 @@ import numpy as np
 import torch
 
 from delta_crdt_ex_tpu_torch.models.binned import pow2_tier, pow4_tier
-from delta_crdt_ex_tpu_torch.models.binned_map import CtxGapError
-from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap
+from delta_crdt_ex_tpu_torch.models.binned_map import BinnedAWLWWMap, CtxGapError
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
 from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry
@@ -72,6 +79,7 @@ _TR_OWN_CTR_CACHE = transfers.register("replica.own_ctr_cache")
 _TR_SLICE_PAYLOAD_DOTS = transfers.register("replica.slice_payload_dots")
 _TR_SLICE_WIRE = transfers.register("replica.slice_wire")
 _TR_GC_SCAN = transfers.register("replica.gc_scan")
+_TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
 
 #: JAX-replica options this port does not implement yet → the later
 #: slice that brings them (``ROADMAP.md`` queue 1) and the value that
@@ -90,9 +98,6 @@ LATER_OPTIONS = {
     "log_shipping": ("WAL, storage and log shipping", False),
     "catchup_chunk_rows": ("WAL, storage and log shipping", ...),
     "catchup_suffix_ratio": ("WAL, storage and log shipping", ...),
-    "ingress_coalesce": ("ingress coalescing", False),
-    "max_coalesce": ("ingress coalescing", ...),
-    "ingress_batch": ("ingress coalescing", ...),
     "tree_gossip": ("tree gossip", False),
     "tree_fanout": ("tree gossip", ...),
     "tree_seed": ("tree gossip", ...),
@@ -176,7 +181,7 @@ class _PushJob:
 class Replica:
     def __init__(
         self,
-        crdt_module=HashAWLWWMap,
+        crdt_module=BinnedAWLWWMap,
         *,
         name: Any = None,
         node_id: int | None = None,
@@ -191,6 +196,9 @@ class Replica:
         levels_per_round: int = 8,
         sync_timeout: float | None = None,
         eager_deltas: bool = True,
+        ingress_coalesce: bool = True,
+        max_coalesce: int = 16,
+        ingress_batch: int = 256,
         gc_interval_ops: int = 4096,
         device="cuda",
         **later,
@@ -219,6 +227,23 @@ class Replica:
             sync_timeout if sync_timeout is not None else max(10 * sync_interval, 2.0)
         )
         self.eager_deltas = eager_deltas
+        #: ingress coalescing: ``process_pending`` drains at most
+        #: ``ingress_batch`` messages a batch and joins each run of
+        #: compatible ``EntriesMsg``s, at most ``max_coalesce`` deep,
+        #: with one grouped merge; the counters feed ``stats()["ingress"]``
+        self.ingress_coalesce = bool(ingress_coalesce)
+        self.max_coalesce = int(max_coalesce)
+        self.ingress_batch = int(ingress_batch)
+        self._coalesce_depths: dict[int, int] = {}
+        self._ingress_messages = 0
+        self._ingress_dispatches = 0
+        self._ingress_gap_fallbacks = 0
+        self._ingress_gap_partitions = 0
+        #: open only inside a ``process_pending`` drain: ``SYNC_DONE``
+        #: emissions park ``(fetch, emit)`` pairs here, and the drain's
+        #: end reads every parked count with one device→host transfer
+        #: and emits them in order
+        self._telemetry_defer: list | None = None
         self._lock = threading.RLock()
         self._pending: list[tuple[str, Any, Any]] = []  # (op, key_term, value)
         #: per-neighbour per-bucket own counter already pushed
@@ -596,7 +621,8 @@ class Replica:
         self._touch_seq += k
 
     def _grow_bin(self) -> None:
-        # the hash store's overflow escape: a whole-table rehash
+        # the model's overflow escape: bin tier ×2 (binned) or a
+        # whole-table rehash (hash)
         self.state = self.model.grow_for_apply(self.state)
         self._grown_telemetry(self.state)
 
@@ -717,12 +743,17 @@ class Replica:
             self._read_cache = None
             self._read_cache_kh = None
         if telemetry.has_handlers(telemetry.SYNC_DONE):
-            n = count_fn()
-            if isinstance(n, tuple):
-                n = sum(int(c) for c in n)
-            telemetry.execute(
-                telemetry.SYNC_DONE, {"keys_updated_count": int(n)}, {"name": self.name}
-            )
+            name = self.name
+
+            def emit(n):
+                if isinstance(n, tuple):
+                    n = sum(int(c) for c in n)
+                telemetry.execute(telemetry.SYNC_DONE, {"keys_updated_count": int(n)}, {"name": name})
+
+            if self._telemetry_defer is not None:
+                self._telemetry_defer.append((count_fn, emit))
+            else:
+                emit(count_fn())
 
     def _emit_diffs(
         self,
@@ -1133,33 +1164,231 @@ class Replica:
     # ------------------------------------------------------------------
     # threaded event loop (the reference's GenServer process analog)
 
-    #: messages handled per mailbox drain (bounded so periodic duties
-    #: are never starved under sustained ingress)
-    DRAIN_BATCH = 256
-
     def notify(self) -> None:
         if self._thread is not None:
             self._wake.set()
 
     def process_pending(self) -> int:
-        """Deterministic drive: handle queued messages now (at most
-        ``8 × DRAIN_BATCH`` per call)."""
+        """Deterministic drive: handle queued messages now, in batches
+        of at most ``ingress_batch`` and at most eight batches a call
+        (so the threaded loop's sync ticks are never starved). With
+        ``ingress_coalesce`` on, each run of consecutive
+        ``EntriesMsg``s merges group by group (``_handle_batch``). The
+        ``SYNC_DONE`` events of the whole drain read their counts with
+        one transfer at its end and are emitted then, in order."""
         n = 0
-        for _ in range(8):
-            batch = self.transport.drain_nowait(self.addr, self.DRAIN_BATCH)
-            if not batch:
-                break
-            n += len(batch)
-            for m in batch:
-                self.handle(m)
-            if len(batch) < self.DRAIN_BATCH:
-                break
+        with self._lock:
+            top = self._telemetry_defer is None
+            if top:
+                self._telemetry_defer = []
+        try:
+            for _ in range(8):
+                batch = self.transport.drain_nowait(self.addr, self.ingress_batch)
+                if not batch:
+                    break
+                n += len(batch)
+                self._handle_batch(batch)
+                if len(batch) < self.ingress_batch:
+                    break
+        finally:
+            if top:
+                with self._lock:
+                    deferred, self._telemetry_defer = self._telemetry_defer, None
+                if deferred:
+                    fetched = _TR_DRAIN_ACCOUNTING.get([f() for f, _e in deferred])
+                    for (_f, emit), data in zip(deferred, fetched):
+                        emit(data)
         return n
 
+    def _handle_batch(self, msgs: list) -> None:
+        """Handle one drained batch in arrival order, coalescing each
+        consecutive run of ``EntriesMsg``s; any other message closes the
+        run and is handled in place, so nothing is reordered across
+        types. A diff subscriber takes the per-slice path (its
+        before/after winner compare is defined per slice)."""
+        if not self.ingress_coalesce or self.on_diffs is not None:
+            for m in msgs:
+                self.handle(m)
+            return
+        run: list = []
+        for m in msgs:
+            if isinstance(m, sync_proto.EntriesMsg):
+                run.append(m)
+                continue
+            self._drain_entries_run(run)
+            self.handle(m)
+        self._drain_entries_run(run)
+
+    def _drain_entries_run(self, run: list) -> None:
+        """Merge one run of queued entries, group by group, taking the
+        lock per group (callers interleave between groups as they could
+        between messages)."""
+        if not run:
+            return
+        for group in self._coalesce_groups(run):
+            with self._lock:
+                self._handle_entries_group(group)
+        run.clear()
+
+    @staticmethod
+    def _coalescible(msg) -> "tuple | None":
+        """``(bucket-row set, entry-lane tier)`` of a message that may
+        join a grouped merge; ``None`` forces the per-slice path (a
+        body that is not host numpy)."""
+        a = msg.arrays
+        if not isinstance(a["key"], np.ndarray):
+            return None
+        rows = np.asarray(a["rows"])
+        return frozenset(rows[rows >= 0].tolist()), a["key"].shape[1]
+
+    def _coalesce_groups(self, run: list) -> list:
+        """Partition a run of ``EntriesMsg``s (arrival order) into groups
+        one grouped merge may join: equal entry-lane tiers (the grouped
+        row-compact sort is then as wide as each message's own, so even
+        dead slots match) and pairwise disjoint rows (``merge_rows`` is
+        row-local, so the group equals its members merged in turn), at
+        most ``max_coalesce`` deep. Greedy in arrival order: a message
+        that conflicts closes the current group, so each sender's slices
+        still merge in order."""
+        groups: list = []
+        cur: list = []
+        cur_rows: set = set()
+        cur_s = -1
+        for m in run:
+            info = self._coalescible(m)
+            if info is None:
+                if cur:
+                    groups.append(cur)
+                cur, cur_rows, cur_s = [], set(), -1
+                groups.append([m])
+                continue
+            rows, width = info
+            if cur and width == cur_s and len(cur) < self.max_coalesce and not (rows & cur_rows):
+                cur.append(m)
+                cur_rows |= rows
+            else:
+                if cur:
+                    groups.append(cur)
+                cur, cur_rows, cur_s = [m], set(rows), width
+        if cur:
+            groups.append(cur)
+        return groups
+
+    def _count_dispatch(self, depth: int, messages: int) -> None:
+        self._ingress_dispatches += 1
+        self._ingress_messages += messages
+        self._coalesce_depths[depth] = self._coalesce_depths.get(depth, 0) + 1
+
+    def _handle_entries_group(self, msgs: list, partition: bool = True) -> None:
+        """Join a group of compatible ``EntriesMsg``s with ONE grouped
+        merge (``merge_group_into``), then do the per-message
+        bookkeeping, so what peers and subscribers observe is what
+        handling them in turn gives, bit for bit. Singleton groups and a
+        diff subscriber take the per-slice path. A delta-interval gap
+        inside the group partitions it: the kernel's per-row gap mask
+        names the gapped members, which replay solo (each answered with
+        its ``GetDiffMsg`` repair), while the clean members retry as one
+        grouped merge; with no usable mask the whole group replays per
+        slice."""
+        if len(msgs) == 1 or self.on_diffs is not None:
+            for m in msgs:
+                self._count_dispatch(1, 1)
+                self._handle_entries_inner(m)
+            return
+        self._flush()
+        t0 = time.perf_counter()
+        # payloads first, whole group: merged winners must resolve
+        # (idempotent, so a fallback below re-registers harmlessly)
+        for m in msgs:
+            self._register_slice_payloads(m.payloads)
+        try:
+            self.state, res, offsets = self.model.merge_group_into(
+                self.state, [m.arrays for m in msgs], on_grow=self._grown_telemetry
+            )
+        except CtxGapError as err:
+            gapped = err.gapped_members
+            if partition and gapped and 0 < len(gapped) < len(msgs):
+                # the clean subgroup re-evaluates against the same state:
+                # a second gap there means the mask was wrong, so its
+                # retry falls back to per-slice handling
+                self._ingress_gap_partitions += 1
+                self._handle_entries_group([m for i, m in enumerate(msgs) if i not in gapped], partition=False)
+                for i in sorted(gapped):
+                    self._count_dispatch(1, 1)
+                    self._handle_entries_inner(msgs[i])
+                return
+            self._ingress_gap_fallbacks += 1
+            for m in msgs:
+                self._count_dispatch(1, 1)
+                self._handle_entries_inner(m)
+            return
+        depth = len(msgs)
+        self._count_dispatch(depth, depth)
+        dt = time.perf_counter() - t0
+        # caches invalidate once (per message in turn: the same end state)
+        self._tree = None
+        self._read_cache = None
+        self._read_cache_kh = None
+        # the count tensors only: a closure over ``res`` would keep its
+        # whole state alive across the drain's deferral window
+        self._commit_entries_group(msgs, offsets, lambda ins=res.n_ins_row, kill=res.n_kill_row: (ins, kill), dt)
+        if telemetry.has_handlers(telemetry.INGEST_COALESCE):
+            telemetry.execute(
+                telemetry.INGEST_COALESCE,
+                {
+                    "depth": depth,
+                    "rows": int(offsets[-1][1]),
+                    "entries": sum(len(m.payloads) for m in msgs),
+                    "duration_s": dt,
+                },
+                {"name": self.name},
+            )
+        self._gc_pressure += sum(len(m.payloads) for m in msgs) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        self._maybe_gc()
+
+    def _commit_entries_group(self, msgs: list, offsets, counts_fn, dt: float) -> None:
+        """Per-message bookkeeping of one grouped merge: one sequence
+        number and one ``SYNC_DONE`` per message (its count summed from
+        the kernel's per-row insert and kill counts over its own rows),
+        one ``SYNC_ROUND`` per message with the group's duration split
+        evenly. The caller holds the lock and has stored the state."""
+        self._seq += len(msgs)
+        depth = len(msgs)
+        if telemetry.has_handlers(telemetry.SYNC_DONE):
+            name = self.name
+
+            def emit_done(counts, offsets=offsets):
+                ins_row, kill_row = counts
+                tot = np.cumsum(np.asarray(ins_row, np.int64) + np.asarray(kill_row, np.int64))
+                meas = [
+                    {"keys_updated_count": int(tot[hi - 1]) - (int(tot[lo - 1]) if lo else 0) if hi > lo else 0}
+                    for lo, hi in offsets
+                ]
+                telemetry.execute_many(telemetry.SYNC_DONE, meas, {"name": name})
+
+            if self._telemetry_defer is not None:
+                self._telemetry_defer.append((counts_fn, emit_done))
+            else:
+                emit_done(_TR_INGEST_COUNTS.get(counts_fn()))
+        if telemetry.has_handlers(telemetry.SYNC_ROUND):
+            telemetry.execute_many(
+                telemetry.SYNC_ROUND,
+                [
+                    {"duration_s": dt / depth, "buckets": int(len(m.buckets)), "entries": len(m.payloads)}
+                    for m in msgs
+                ],
+                {"name": self.name, "plane": "host"},
+            )
+
     def stats(self) -> dict:
+        """Observability snapshot. ``ingress`` shows the coalescing of
+        ``process_pending``: messages and grouped dispatches, the depth
+        histogram (group size → dispatches) and the gap fallbacks."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
+            dispatches = self._ingress_dispatches
+            messages = self._ingress_messages
             return {
                 "name": self.name,
                 "node_id": self.node_id,
@@ -1167,8 +1396,15 @@ class Replica:
                 "neighbours": list(self._neighbours),
                 "outstanding_syncs": len(self._outstanding),
                 "payloads": len(self._payloads),
+                "ingress": {
+                    "messages": messages,
+                    "dispatches": dispatches,
+                    "merges_per_dispatch": round(messages / dispatches, 3) if dispatches else 0.0,
+                    "coalesce_depth_hist": dict(sorted(self._coalesce_depths.items())),
+                    "gap_fallbacks": self._ingress_gap_fallbacks,
+                    "gap_partitions": self._ingress_gap_partitions,
+                },
                 "device": str(self.device),
-                "table_size": self.state.table_size,
                 # process-wide launch count of the probe-window kernel
                 "kernel_launches": {probe_lookup_kernel.name: probe_lookup_kernel.launches},
                 # process-wide per-site device↔host crossings

@@ -3,8 +3,8 @@
 The reference fires ``[:delta_crdt, :sync, :done]`` with
 ``%{keys_updated_count: n}`` and ``%{name: name}`` on **every** merge —
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
-contract here, plus the capacity-growth and sync-round events, under
-the same attach/execute API. The events of later slices (WAL, fleets,
+contract here, plus the capacity-growth, sync-round and
+ingress-coalescing events, under the same attach/execute API. The events of later slices (WAL, fleets,
 serving, …) come with them.
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
@@ -20,6 +20,7 @@ from typing import Callable
 SYNC_DONE = ("delta_crdt", "sync", "done")  # measurements: keys_updated_count
 CAPACITY_GROWN = ("delta_crdt", "capacity", "grown")  # measurements: capacity, replica_capacity
 SYNC_ROUND = ("delta_crdt", "sync", "round")  # measurements: duration_s, buckets, entries; metadata: name, plane
+INGEST_COALESCE = ("delta_crdt", "ingest", "coalesce")  # measurements: depth, rows, entries, duration_s; metadata: name
 
 _lock = threading.Lock()
 #: event -> handler tuple. Handler tables are REPLACED, never mutated
@@ -53,3 +54,14 @@ def execute(event: tuple, measurements: dict, metadata: dict) -> None:
         handlers = _handlers.get(event, ())
     for h in handlers:
         h(event, measurements, metadata)
+
+
+def execute_many(event: tuple, measurements_list: list, metadata: dict) -> None:
+    """One event per element of ``measurements_list`` (shared
+    ``metadata``), in order, handler by handler: each handler sees the
+    stream ``execute`` in a loop would deliver."""
+    with _lock:
+        handlers = _handlers.get(event, ())
+    for h in handlers:
+        for meas in measurements_list:
+            h(event, meas, metadata)

@@ -7,8 +7,10 @@ reads, the diff streams, the canonical state bytes and every state
 column must be bit-identical.
 
 Also: the port imports nothing of JAX or of the JAX package, its wire
-messages keep the JAX package's fields, CUDA is its default device, and
-options of later slices raise instead of being ignored.
+messages keep the JAX package's fields, CUDA is its default device,
+``AWLWWMap`` with no ``store=`` is the binned store with ingress
+coalescing on, ``stats()`` works on both stores, and options of later
+slices raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -140,6 +142,9 @@ def test_port_imports_no_jax():
         "import delta_crdt_ex_tpu_torch.ops.hash_map, delta_crdt_ex_tpu_torch.utils.kernels\n"
         "import delta_crdt_ex_tpu_torch.ops.roots, delta_crdt_ex_tpu_torch.utils.synth\n"
         "import delta_crdt_ex_tpu_torch.parallel.batched_sync, delta_crdt_ex_tpu_torch.models.binned_map\n"
+        "import delta_crdt_ex_tpu_torch.models.hash_store, delta_crdt_ex_tpu_torch.ops.binned\n"
+        "import delta_crdt_ex_tpu_torch.runtime.replica, delta_crdt_ex_tpu_torch.runtime.telemetry\n"
+        "from delta_crdt_ex_tpu_torch import AWSet, BinnedAWLWWMap, HashAWSet, HashAWLWWMap\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
     )
@@ -162,15 +167,51 @@ def test_wire_messages_keep_the_manifest_fields():
 
 def test_start_link_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tdc.start_link(tdc.AWLWWMap, store="hash", threaded=False, transport=TTransport())
+    for store in ("hash", None):  # None: the binned store, the default
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tdc.start_link(tdc.AWLWWMap, store=store, threaded=False, transport=TTransport())
+
+
+def test_default_start_link_is_the_binned_store_with_coalescing():
+    r = tdc.start_link(tdc.AWLWWMap, threaded=False, transport=TTransport(), device="cpu")
+    assert tdc.AWLWWMap is tdc.BinnedAWLWWMap
+    assert r.model is tdc.BinnedAWLWWMap and type(r.state).__name__ == "BinnedStore"
+    assert (r.ingress_coalesce, r.max_coalesce, r.ingress_batch) == (True, 16, 256)
+    for model, store, want in [
+        (tdc.AWLWWMap, "hash", tdc.HashAWLWWMap),
+        (tdc.AWSet, "hash", tdc.HashAWSet),
+        (tdc.HashAWSet, "binned", tdc.AWSet),
+        (tdc.AWSet, None, tdc.AWSet),
+    ]:
+        r = tdc.start_link(model, store=store, threaded=False, transport=TTransport(), device="cpu")
+        assert r.model is want, (model, store)
+
+
+@pytest.mark.parametrize("store", ["binned", "hash"])
+def test_stats_on_both_stores(store):
+    t = TTransport()
+    r1, r2 = (
+        tdc.start_link(tdc.AWLWWMap, store=store, threaded=False, transport=t, device="cpu", capacity=64, tree_depth=4)
+        for _ in range(2)
+    )
+    r1.set_neighbours([r2])
+    r1.mutate_batch("add", [[i, i] for i in range(40)])
+    r1.sync_to_all()
+    r2.process_pending()
+    st = r2.stats()
+    assert st["ingress"]["dispatches"] >= 1 and st["ingress"]["messages"] >= st["ingress"]["dispatches"]
+    assert set(st["ingress"]) == {
+        "messages", "dispatches", "merges_per_dispatch", "coalesce_depth_hist", "gap_fallbacks", "gap_partitions",
+    }
+    assert st["payloads"] == 40 and "table_size" not in st
+    assert r2.read() == {i: i for i in range(40)}
 
 
 @pytest.mark.parametrize(
     "opts, err",
     [
-        ({}, NotImplementedError),  # the binned store is the default
-        ({"store": "binned"}, NotImplementedError),
+        ({"log_shipping": True}, NotImplementedError),
+        ({"storage_module": object()}, NotImplementedError),
         ({"store": "hash", "wal_dir": "x"}, NotImplementedError),
         ({"store": "hash", "tree_gossip": True}, NotImplementedError),
         ({"store": "hash", "no_such_option": 1}, TypeError),
