@@ -13,7 +13,10 @@ between neighbours → ``read``/``read_keys``, for ``AWLWWMap``,
 ``AWSet`` and ``HashAWSet`` — with the probe-window LWW lookup as a
 hand-written CUDA kernel for Hopper (``csrc/probe.cu``); and the
 binned-store fan-in with the digest-tree roots fold as the second
-(``csrc/roots.cu``). See ``ROADMAP.md`` for what comes next.
+(``csrc/roots.cu``); and batched replica fleets —
+``start_fleet(n)``, one device call a wave for many replicas' ingress
+merges and sync-tick extractions, on both stores. See ``ROADMAP.md``
+for what comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (
@@ -25,10 +28,12 @@ from delta_crdt_ex_tpu_torch.api import (
     read,
     read_keys,
     set_neighbours,
+    start_fleet,
     start_link,
 )
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
+from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
 __version__ = "0.1.0"
@@ -38,6 +43,7 @@ __all__ = [
     "AWSet",
     "BinnedAWLWWMap",
     "DeltaCrdt",
+    "Fleet",
     "HashAWLWWMap",
     "HashAWSet",
     "Replica",
@@ -47,5 +53,6 @@ __all__ = [
     "read",
     "read_keys",
     "set_neighbours",
+    "start_fleet",
     "start_link",
 ]

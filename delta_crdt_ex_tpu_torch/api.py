@@ -1,7 +1,7 @@
 """Public API facade of the PyTorch port — parity with ``DeltaCrdt``
 (``lib/delta_crdt.ex``) and with ``delta_crdt_ex_tpu/api.py``:
-``start_link``, ``set_neighbours``, ``mutate``, ``mutate_async``,
-``mutate_batch``, ``read``, ``read_keys``.
+``start_link``, ``start_fleet``, ``set_neighbours``, ``mutate``,
+``mutate_async``, ``mutate_batch``, ``read``, ``read_keys``.
 
 Example (the reference doctest flow, ``delta_crdt.ex:17-28``)::
 
@@ -23,6 +23,7 @@ from typing import Any
 
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
+from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet, check_unported
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
 DEFAULT_SYNC_INTERVAL = 0.2  # seconds (reference: 200 ms, delta_crdt.ex:31)
@@ -83,6 +84,49 @@ def start_link(
     if threaded:
         replica.start()
     return replica
+
+
+def start_fleet(
+    n: int,
+    crdt_module=AWLWWMap,
+    *,
+    threaded: bool = True,
+    names: "list | None" = None,
+    min_batch: int = 2,
+    store: "str | None" = None,
+    **opts,
+) -> Fleet:
+    """Start ``n`` replicas served by ONE batched event loop
+    (``delta_crdt_ex_tpu/api.py:195``): the fleet drains all ``n``
+    mailboxes a tick and joins compatible sync slices across replicas
+    with one batched merge over a leading replica axis, and batches the
+    sync ticks' extractions and tree builds the same way. What each
+    member observes is what a solo replica would.
+
+    ``opts`` are per-replica ``start_link`` options shared by every
+    member (``names`` gives each its name); ``device`` defaults to
+    ``"cuda"`` and raises without CUDA. Returns the
+    :class:`~delta_crdt_ex_tpu_torch.runtime.fleet.Fleet`, whose
+    ``.replicas`` are ordinary replica handles. ``threaded=False``
+    leaves driving to the caller (``fleet.tick()`` / ``fleet.drain()``
+    and ``fleet.sync_tick()`` or ``fleet.run_duties()``). ``mesh=`` and
+    ``obs=`` raise: they come with later slices."""
+    if names is not None and len(names) != n:
+        raise ValueError(f"{len(names)} names for {n} replicas")
+    check_unported(obs=opts.pop("obs", None), mesh=opts.pop("mesh", None))
+    opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
+    opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
+    crdt_module = _resolve_store(crdt_module, store)
+    replicas = []
+    for i in range(n):
+        member = dict(opts)
+        if names is not None:
+            member["name"] = names[i]
+        replicas.append(Replica(crdt_module, **member))
+    fleet = Fleet(replicas, min_batch=min_batch)
+    if threaded:
+        fleet.start()
+    return fleet
 
 
 def set_neighbours(crdt: Replica, neighbours: list) -> None:

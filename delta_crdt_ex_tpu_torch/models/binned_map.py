@@ -215,7 +215,9 @@ _WIRE_ENTRY_COLS = ("key", "valh", "ts", "ctr", "alive")
 
 def combine_entry_arrays(arrays_list: list, device) -> "tuple[RowSlice, list]":
     """Combine k host-plane ``EntriesMsg`` column dicts into ONE
-    :class:`~delta_crdt_ex_tpu_torch.ops.binned.RowSlice` on ``device`` — the ingress
+    :class:`~delta_crdt_ex_tpu_torch.ops.binned.RowSlice` on ``device``
+    (``None``: a RowSlice of host numpy columns in the wire dtypes, the
+    fleet's staging form for :func:`stack_entry_slices`) — the ingress
     coalescing fan-in: instead of k sequential ``merge_rows`` dispatches,
     the runtime merges the whole group with one.
 
@@ -302,18 +304,85 @@ def combine_entry_arrays(arrays_list: list, device) -> "tuple[RowSlice, list]":
             for c, v in cols.items()
         }
 
-    sl = slice_from_wire(
-        {
-            "rows": rows,
-            **cols,
-            "node": node,
-            "ctx_rows": ctx_rows,
-            "ctx_lo": ctx_lo,
-            "ctx_gid": ctx_gid,
-        },
-        device,
-    )
-    return sl, offsets
+    wire = {
+        "rows": rows,
+        **cols,
+        "node": node,
+        "ctx_rows": ctx_rows,
+        "ctx_lo": ctx_lo,
+        "ctx_gid": ctx_gid,
+    }
+    if device is None:
+        return RowSlice(**{c: wire[c] for c in RowSlice._fields}), offsets
+    return slice_from_wire(wire, device), offsets
+
+
+#: RowSlice fields padded along the writer-table (Rr) axis by
+#: :func:`stack_entry_slices`'s ragged masking
+_SLICE_CTX_FIELDS = ("ctx_rows", "ctx_lo")
+
+
+def stack_entry_slices(slices: list, lanes: int | None = None, *, device) -> "tuple[RowSlice, int]":
+    """``combine_entry_arrays`` generalised to a replica axis
+    (``binned_map.py:338``): stack k per-replica combined slices (host
+    numpy form, ``combine_entry_arrays(..., None)``) into one
+    :class:`~delta_crdt_ex_tpu_torch.ops.binned.RowSlice` on ``device``
+    with a leading replica axis, for ONE ``fleet_merge_rows`` call.
+
+    Ragged fan-in is handled by per-replica masking, not truncation:
+
+    - row counts pad to the stack's max row tier with ``-1`` rows (the
+      merge's valid mask drops them);
+    - writer-table widths pad to the max with zero gids (empty slots
+      that claim nothing);
+    - entry-lane tiers (``key.shape[1]``) must be EQUAL — padding them
+      would change the row-compact sort width and with it dead-slot
+      bytes; the fleet buckets unequal tiers apart instead.
+
+    ``lanes`` pads the REPLICA axis with all-padding lanes (rows all
+    ``-1``) that merge nothing; they copy lane 0's geometry. Returns
+    ``(stacked slice, real_rows)``, ``real_rows`` counting the
+    non-padding bucket rows of the real lanes (the ragged-mask fill
+    ratio's numerator)."""
+    n = len(slices)
+    lanes = n if lanes is None else lanes
+    s_widths = {s.key.shape[1] for s in slices}
+    if len(s_widths) > 1:
+        raise ValueError(f"unequal entry-lane tiers in one stack: {s_widths}")
+    u_to = max(s.rows.shape[0] for s in slices)
+    rp_to = max(s.ctx_gid.shape[0] for s in slices)
+    real_rows = 0
+
+    def pad(sl: RowSlice) -> dict:
+        du = u_to - sl.rows.shape[0]
+        drp = rp_to - sl.ctx_gid.shape[0]
+        out = {}
+        for c in RowSlice._fields:
+            a = np.asarray(getattr(sl, c))
+            if c == "rows":
+                if du:
+                    a = np.concatenate([a, np.full(du, -1, a.dtype)])
+            elif c == "ctx_gid":
+                if drp:
+                    a = np.concatenate([a, np.zeros(drp, a.dtype)])
+            else:
+                if c in _SLICE_CTX_FIELDS and drp:
+                    a = np.concatenate([a, np.zeros((a.shape[0], drp), a.dtype)], axis=1)
+                if du:
+                    a = np.concatenate([a, np.zeros((du,) + a.shape[1:], a.dtype)])
+            out[c] = a
+        return out
+
+    padded = []
+    for sl in slices:
+        real_rows += int((np.asarray(sl.rows) >= 0).sum())
+        padded.append(pad(sl))
+    if lanes > n:
+        blank = {c: np.zeros_like(a) for c, a in padded[0].items()}
+        blank["rows"] = np.full(u_to, -1, np.int32)
+        padded.extend([blank] * (lanes - n))
+    stacked = slice_from_wire({c: np.stack([p[c] for p in padded]) for c in RowSlice._fields}, device)
+    return stacked, real_rows
 
 
 def grouped_merge(merge_rows_into_fn, state, arrays_list: list, on_grow=None):
@@ -420,20 +489,30 @@ class BinnedAWLWWMap:
         """The same key read from a stacked store's shapes."""
         return ("binned", stacked.key.shape[1], stacked.key.shape[2], stacked.ctx_gid.shape[1])
 
-    # the fleet and mesh seams of the JAX model (its vmapped and
-    # shard_mapped batched forms) come with their slices
+    # the fleet seams (``binned_map.py:561-593``): one batched call
+    # serves a whole bucket of members. The extractions return
+    # ``(stacked_slice, s_tiers)``; ``s_tiers`` is None here — the
+    # binned lane axis is state geometry, so lane k IS the solo slice
 
     @classmethod
     def fleet_merge_rows(cls, states, slices):
-        raise _later_slice("the fleet batched merge (the fleets slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.fleet_merge_rows(states, slices)
 
     @classmethod
     def fleet_extract_rows(cls, states, rows):
-        raise _later_slice("the fleet batched extraction (the fleets slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.fleet_extract_rows(states, rows), None
 
     @classmethod
     def fleet_extract_own_delta(cls, states, rows, self_slots, gid_selfs, lo):
-        raise _later_slice("the fleet batched delta extraction (the fleets slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.fleet_interval_slices(states, rows, self_slots, gid_selfs, lo), None
+
+    # the mesh seams (shard_mapped batched forms) come with their slice
 
     @classmethod
     def mesh_fleet_merge_rows(cls, mesh, states, slices):

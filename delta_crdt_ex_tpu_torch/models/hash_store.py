@@ -285,6 +285,18 @@ def _dense_lanes(counts) -> int:
     return _pow2(max(int(counts.max()) if counts.numel() else 0, 1), floor=4)
 
 
+def _lane_tiers(counts) -> list:
+    """Each lane's :func:`_dense_lanes` tier from a stacked counting
+    pass ``[N, U]``, with one host read."""
+    return [_pow2(max(c, 1), floor=4) for c in counts.amax(dim=1).tolist()]
+
+
+def _mesh_slice(what: str) -> NotImplementedError:
+    from delta_crdt_ex_tpu_torch.models.binned_map import _later_slice
+
+    return _later_slice(f"the mesh-sharded fleet {what} (the multi-device mesh slice)")
+
+
 def extract_rows(state: HashStore, rows):
     """Dense full-row slice: a counting pass sizes the pow2 lane tier,
     the packed gather fills it."""
@@ -366,7 +378,28 @@ class HashAWLWWMap:
         return maybe_rehash(state, int(res.max_window_fill), on_grow=on_grow)
 
     @staticmethod
+    def combine_entry_arrays(arrays_list: list, device):
+        from delta_crdt_ex_tpu_torch.models.binned_map import combine_entry_arrays
+
+        return combine_entry_arrays(arrays_list, device)
+
+    @staticmethod
+    def load_high(max_window_fill: int, probe_window: int) -> bool:
+        """Fleet post-commit advisory (``hash_store.py:441``): a lane
+        whose fullest window nears overflow grows off the batch path,
+        before it escapes mid-batch."""
+        return max_window_fill * LOAD_DEN > LOAD_NUM * probe_window
+
+    @staticmethod
+    def store_load_high(state: HashStore) -> bool:
+        """The same advisory recomputed from a live state (the replica's
+        re-check under its lock before an advised growth)."""
+        return HashAWLWWMap.load_high(int(_ops().max_window_fill(state)), state.probe_window)
+
+    @staticmethod
     def geometry(state: HashStore) -> tuple:
+        """Batch-compatibility key: hash members bucket by TABLE
+        CAPACITY, which moves only on a rehash."""
         return (
             "hash",
             state.num_buckets,
@@ -374,6 +407,48 @@ class HashAWLWWMap:
             state.replica_capacity,
             state.probe_window,
         )
+
+    @staticmethod
+    def geometry_stacked(stacked) -> tuple:
+        """The same key read from a stacked store's shapes."""
+        return ("hash", stacked.leaf.shape[-1], stacked.key.shape[-1], stacked.ctx_gid.shape[-1], stacked.probe_window)
+
+    # the fleet seams (``hash_store.py:485-520``). The dense extraction
+    # sizes its entry-lane tier by content, so a bucket runs at the max
+    # of its members' own pow2 tiers (one host read of the counting
+    # pass) and each lane trims back to its solo tier (``s_tiers``)
+
+    @classmethod
+    def fleet_merge_rows(cls, states, slices):
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.fleet_hash_merge_rows(states, slices)
+
+    @classmethod
+    def fleet_extract_rows(cls, states, rows):
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        tiers = _lane_tiers(transition.fleet_hash_row_counts(states, rows))
+        return transition.fleet_hash_extract_rows(states, rows, max(tiers)), tiers
+
+    @classmethod
+    def fleet_extract_own_delta(cls, states, rows, self_slots, gid_selfs, lo):
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        tiers = _lane_tiers(transition.fleet_hash_own_delta_counts(states, rows, self_slots, lo))
+        return transition.fleet_hash_interval_slices(states, rows, self_slots, gid_selfs, lo, max(tiers)), tiers
+
+    @classmethod
+    def mesh_fleet_merge_rows(cls, mesh, states, slices):
+        raise _mesh_slice("merge")
+
+    @classmethod
+    def mesh_fleet_extract_rows(cls, mesh, states, rows):
+        raise _mesh_slice("extraction")
+
+    @classmethod
+    def mesh_fleet_extract_own_delta(cls, mesh, states, rows, self_slots, gid_selfs, lo):
+        raise _mesh_slice("delta extraction")
 
 
 class HashAWSet(HashAWLWWMap):

@@ -3,7 +3,7 @@
 
 - the primitives the hash store shares: the mixers and the entry hash,
   the digest-tree fold, the wire slice (:class:`RowSlice`), the
-  interval/insert preamble every merge shares (:func:`_slice_view`),
+  interval/insert preamble every merge shares (:func:`_slice_view_b`),
   and the LWW winner cores;
 - the bulk fan-in path's store ops: :func:`merge_slice` (the
   element-scatter merge, both its uncompacted and its ``top_k``
@@ -55,7 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore, map_columns
+from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
 
@@ -243,18 +243,32 @@ def _lane_slice(sl: RowSlice, n: int) -> RowSlice:
     return RowSlice(*(c.expand(n, *c.shape) for c in sl))
 
 
-def _with_lanes(state: BinnedStore) -> tuple[BinnedStore, bool]:
-    """``(state with a lane axis, whether one was added)``."""
-    if state.key.dim() == 3:
+def _map_store(fn, state):
+    """The store (binned or hash) with ``fn`` applied to every tensor
+    column; static fields (the hash store's probe window) pass."""
+    return dataclasses.replace(
+        state,
+        **{
+            f.name: fn(getattr(state, f.name))
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)
+        },
+    )
+
+
+def _with_lanes(state):
+    """``(state with a lane axis, whether one was added)``, for either
+    store: a stacked store's writer table is ``[N, R]``."""
+    if state.ctx_gid.dim() == 2:
         return state, False
-    return map_columns(lambda t: t.unsqueeze(0), state), True
+    return _map_store(lambda t: t.unsqueeze(0), state), True
 
 
 def _lane0(x):
     """Lane 0 of a lane-batched result (a store, a NamedTuple of
     tensors and stores, or a tensor)."""
-    if isinstance(x, BinnedStore):
-        return map_columns(lambda t: t[0], x)
+    if dataclasses.is_dataclass(x):
+        return _map_store(lambda t: t[0], x)
     if isinstance(x, tuple):
         return type(x)(*(_lane0(f) for f in x))
     return x[0]
@@ -337,13 +351,6 @@ def _slice_view_b(ctx_gid: torch.Tensor, ctx_max: torch.Tensor, sl: RowSlice) ->
         valid, rows_safe, rows_clip, gids, rdense, ldense, ln, ln_clip,
         local_ctx, ins, need_ctx_gap, gap_row, nonempty,
     )
-
-
-def _slice_view(state, sl: RowSlice) -> SliceView:
-    """:class:`SliceView` of one state (a binned or a hash store) and a
-    slice of one lane."""
-    v = _slice_view_b(state.ctx_gid[None], state.ctx_max[None], _lane_slice(sl, 1))
-    return _lane0(v)
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +526,7 @@ def _gather_rows(state: BinnedStore, lanes: torch.Tensor, rows_clip: torch.Tenso
     return {c: getattr(state, c)[lanes, rows_clip] for c in _ROW_COLS}
 
 
-def _lane_args(state: BinnedStore, *args):
+def _lane_args(state, *args):
     """``(state with a lane axis, whether one was added, args)``: each
     argument gains the same leading lane axis as the state (a Python
     int or 0-d tensor is broadcast to one value per lane)."""
@@ -716,20 +723,26 @@ def clear_all(state: BinnedStore) -> BinnedStore:
 
 def extract_rows(state: BinnedStore, rows: torch.Tensor) -> RowSlice:
     """The slice of a set of bucket rows (``ops/binned.py:383``; -1
-    pads). For a stacked state the slice has one lane per state."""
+    pads). For a stacked state the slice has one lane per state, over
+    rows shared by every lane (``[U]``) or one row set per lane
+    (``[N, U]``, the fleet's batched extraction)."""
     L = state.num_buckets
     valid = rows >= 0
     rows_clip = rows.clamp(0, L - 1)
-    take = lambda c: getattr(state, c)[..., rows_clip, :]
-    ctx_rows = take("ctx_max") * valid[:, None]
+    if rows.dim() == 2:
+        lanes = _lanes(rows.shape[0], rows.device)
+        take = lambda c: getattr(state, c)[lanes, rows_clip]
+    else:
+        take = lambda c: getattr(state, c)[..., rows_clip, :]
+    ctx_rows = take("ctx_max") * valid[..., None]
     return RowSlice(
-        rows=rows.expand(*state.key.shape[:-2], rows.shape[0]),
+        rows=rows.expand(*state.key.shape[:-2], rows.shape[-1]),
         key=take("key"),
         valh=take("valh"),
         ts=take("ts"),
         node=take("node"),
         ctr=take("ctr"),
-        alive=take("alive") & valid[:, None],
+        alive=take("alive") & valid[..., None],
         ctx_rows=ctx_rows,
         ctx_lo=torch.zeros_like(ctx_rows),
         ctx_gid=state.ctx_gid,

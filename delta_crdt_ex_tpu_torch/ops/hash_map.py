@@ -11,13 +11,18 @@ tombstones), and a window with no dead lane signals ``need_fill_grow``
 
 Each function here is the JAX function of the same name as torch ops on
 the state's device, bit for bit: the same lanes, the same arrival
-stamps, the same escape flags. Integer layout and the unsigned-order
+stamps, the same escape flags. The ops the hash fleet runs
+(:func:`merge_rows`, :func:`row_counts`, :func:`own_delta_counts`,
+:func:`extract_rows_packed`, :func:`extract_own_delta_packed`,
+:func:`winner_all`) also take a stack of tables (``[N, H]`` columns)
+with per-lane arguments, where the JAX package ``vmap``s them; a
+single table runs as one lane. Integer layout and the unsigned-order
 helpers are in :mod:`delta_crdt_ex_tpu_torch.ops.binned`. Scatters whose
 JAX form drops out-of-range indices (``mode="drop"``) write into one
-extra sentinel element that is then cut off; every scatter with
-possibly repeated indices either writes one value or reduces with an
-order-free reduction (``amin``, integer ``index_add_``), so the result
-does not depend on the order CUDA applies them in.
+extra sentinel element per lane that is then cut off; every scatter
+with possibly repeated indices either writes one value or reduces with
+an order-free reduction (``amin``, integer ``scatter_add_``), so the
+result does not depend on the order CUDA applies them in.
 
 The point lookup (:func:`probe_lookup`) is the port of the Pallas TPU
 kernel ``probe_lookup_pallas``: on a CUDA table it launches the
@@ -43,10 +48,15 @@ from delta_crdt_ex_tpu_torch.ops.binned import (
     _argmax_lww,
     _flip,
     _i64,
+    _lane0,
+    _lane_args,
+    _lane_slice,
+    _lanes,
     _mix64,
-    _slice_view,
+    _slice_view_b,
     _sorted_winners,
     _table_lookup,
+    _with_lanes,
     entry_hash,
 )
 
@@ -72,98 +82,142 @@ def _window(key: torch.Tensor, table_size: int, window: int):
     return slots, slots < table_size
 
 
-def _set_drop(col: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    """``col.at[idx].set(vals, mode="drop")`` where the only out-of-range
-    index is ``len(col)``: write into a sentinel element, cut it off."""
-    ext = torch.cat([col, col[:1]])
-    ext[idx.to(_LONG)] = vals if not isinstance(vals, torch.Tensor) else vals.to(col.dtype)
-    return ext[:-1]
+# ---------------------------------------------------------------------------
+# lane-batched scatter helpers. Every column here is ``[N, H]`` (or
+# ``[N, L]``): one flat table per lane. A drop-mode scatter sends its
+# out-of-range writes to index ``H`` of the lane's own row of an
+# ``[N, H + 1]`` copy (the sentinel column, cut off after), so one
+# lane's dropped write never lands in another lane; a window's lanes
+# never pass ``H`` either (``_window`` masks them), so a window near a
+# table's end cannot read into the next lane's table.
 
 
-def _count_drop(n: int, idx: torch.Tensor) -> torch.Tensor:
-    """int32[n]: ``zeros(n).at[idx].add(1, mode="drop")`` (index ``n``
-    drops)."""
-    out = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
-    out.index_add_(0, idx.to(_LONG), torch.ones_like(idx, dtype=torch.int32))
-    return out[:n]
+def _set_drop_b(col: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``col[n].at[idx[n]].set(vals[n], mode="drop")`` per lane, out of
+    place, where the only out-of-range index is ``H``. Indices below
+    ``H`` are distinct within a lane, or written with one value."""
+    n = col.shape[0]
+    ext = torch.cat([col, col[:, :1]], 1)
+    idx = idx.reshape(n, -1).to(_LONG)
+    if isinstance(vals, torch.Tensor):
+        src = vals.to(col.dtype).reshape(n, -1)
+    else:
+        src = torch.full(idx.shape, vals, dtype=col.dtype, device=col.device)
+    ext.scatter_(1, idx, src)
+    return ext[:, :-1]
 
 
-def _place(occupied: torch.Tensor, want: torch.Tensor, slots: torch.Tensor, slot_ok: torch.Tensor):
+def _count_drop_b(u: int, idx: torch.Tensor) -> torch.Tensor:
+    """int32[N, u]: ``zeros(u).at[idx[n]].add(1, mode="drop")`` per lane
+    (index ``u`` drops)."""
+    n = idx.shape[0]
+    idx = idx.reshape(n, -1).to(_LONG)
+    out = torch.zeros((n, u + 1), dtype=torch.int32, device=idx.device)
+    out.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    return out[:, :u]
+
+
+def _place_b(occupied: torch.Tensor, want: torch.Tensor, slots: torch.Tensor, slot_ok: torch.Tensor):
     """Place each flagged entry at the first unoccupied lane of its
     candidate window, resolving same-lane collisions within the batch:
     ``W`` rounds of propose → scatter-min claim → winners commit
-    (``hash_map.py:101``). Returns ``(placed int64[N] (-1 = window
-    full), occupied')``."""
-    n, w = slots.shape
-    h = occupied.shape[0]
+    (``hash_map.py:101``), every table of the stack at once. ``occupied``
+    is ``[N, H]``, ``want`` ``[N, K]``, ``slots``/``slot_ok``
+    ``[N, K, W]``. Returns ``(placed int64[N, K] (-1 = window full),
+    occupied')``."""
+    n, k, w = slots.shape
+    h = occupied.shape[1]
     dev = occupied.device
     slots_c = torch.where(slot_ok, slots, h).to(_LONG)  # h = out-of-window sentinel
-    used_p = torch.cat([occupied, torch.ones(1, dtype=torch.bool, device=dev)])
-    ids = torch.arange(n, dtype=_LONG, device=dev)
-    placed = torch.full((n,), -1, dtype=_LONG, device=dev)
+    used_p = torch.cat([occupied, torch.ones((n, 1), dtype=torch.bool, device=dev)], 1)
+    ids = torch.arange(k, dtype=_LONG, device=dev).expand(n, k)
+    placed = torch.full((n, k), -1, dtype=_LONG, device=dev)
     for _ in range(w):
         unplaced = want & (placed < 0)
-        free = ~used_p[slots_c]  # [N, W]
-        has = free.any(dim=1)
-        pos = free.to(torch.int32).argmax(dim=1, keepdim=True)
+        free = ~torch.gather(used_p, 1, slots_c.reshape(n, k * w)).reshape(n, k, w)
+        has = free.any(dim=2)
+        pos = free.to(torch.int32).argmax(dim=2, keepdim=True)
         go = unplaced & has
-        cand = torch.where(go, torch.gather(slots_c, 1, pos)[:, 0], h)
-        claim = torch.full((h + 1,), n, dtype=_LONG, device=dev)
-        claim.scatter_reduce_(0, cand, ids, "amin")
-        win = go & (claim[cand] == ids)
+        cand = torch.where(go, torch.gather(slots_c, 2, pos)[..., 0], h)
+        claim = torch.full((n, h + 1), k, dtype=_LONG, device=dev)
+        claim.scatter_reduce_(1, cand, ids, "amin")
+        win = go & (torch.gather(claim, 1, cand) == ids)
         placed = torch.where(win, cand, placed)
-        used_p[torch.where(win, cand, h)] = True
-    return placed, used_p[:-1]
+        used_p.scatter_(1, torch.where(win, cand, h), True)
+    return placed, used_p[:, :-1]
 
 
-def _row_lookup(rows: torch.Tensor, num_buckets: int):
-    """``(valid[U], rows_safe[U] (L = padding sentinel), rows_clip[U],
-    row_to_u[L])`` where ``row_to_u`` maps a sync bucket to its position
-    in ``rows`` (``U`` = not requested)."""
-    u = rows.shape[0]
+def _row_lookup_b(rows: torch.Tensor, num_buckets: int):
+    """``(valid[N, U], rows_safe[N, U] (L = padding sentinel),
+    rows_clip[N, U], row_to_u[N, L])`` where ``row_to_u`` maps a sync
+    bucket to its position in the lane's ``rows`` (``U`` = not
+    requested)."""
+    n, u = rows.shape
     valid = rows >= 0
     rows_safe = torch.where(valid, rows, num_buckets).to(_LONG)
     rows_clip = rows_safe.clamp(0, num_buckets - 1)
-    row_to_u = _set_drop(
-        torch.full((num_buckets,), u, dtype=_LONG, device=rows.device),
+    row_to_u = _set_drop_b(
+        torch.full((n, num_buckets), u, dtype=_LONG, device=rows.device),
         rows_safe,
-        torch.arange(u, dtype=_LONG, device=rows.device),
+        torch.arange(u, dtype=_LONG, device=rows.device).expand(n, u),
     )
     return valid, rows_safe, rows_clip, row_to_u
 
 
-def _max_window_fill(alive: torch.Tensor, table_size: int, window: int) -> torch.Tensor:
-    """int64: alive entries in the fullest probe window (the growth
-    pressure signal)."""
+def _max_window_fill_b(alive: torch.Tensor, table_size: int, window: int) -> torch.Tensor:
+    """int64[N]: alive entries in each table's fullest probe window (the
+    growth pressure signal)."""
     a = alive.to(_LONG)
-    cum = torch.cumsum(a, 0)
+    cum = torch.cumsum(a, 1)
     bases = torch.arange(0, table_size, GROUP, dtype=_LONG, device=alive.device)
     hi = (bases + window - 1).clamp(0, table_size - 1)
-    below = cum[bases] - a[bases]
-    return (cum[hi] - below).max()
+    below = cum[:, bases] - a[:, bases]
+    return (cum[:, hi] - below).amax(dim=1)
 
 
 def max_window_fill(state: HashStore) -> torch.Tensor:
-    return _max_window_fill(state.alive, state.table_size, state.probe_window)
+    """int64 (one per lane for a stacked store): alive entries in the
+    fullest probe window."""
+    a = state.alive
+    fill = _max_window_fill_b(a.reshape(-1, a.shape[-1]), state.table_size, state.probe_window)
+    return fill.reshape(a.shape[:-1])
 
 
 def _entry_rows(state: HashStore) -> torch.Tensor:
-    """int64[H]: the sync bucket of each slot's key (stale for dead
+    """int64[..., H]: the sync bucket of each slot's key (stale for dead
     slots — always mask by ``alive``)."""
     return state.key & (state.num_buckets - 1)
 
 
-def _splice_leaf(state: HashStore, alive2, ehash2, rows_safe, rows_clip):
+def _u_of(state: HashStore, rows: torch.Tensor) -> torch.Tensor:
+    """int64[N, H]: each slot's position in its lane's requested ``rows``
+    (``U`` = its bucket was not requested)."""
+    _, _, _, row_to_u = _row_lookup_b(rows, state.num_buckets)
+    return torch.gather(row_to_u, 1, _entry_rows(state))
+
+
+def _splice_leaf_b(state: HashStore, alive2, ehash2, rows_safe, rows_clip):
     """Recompute the maintained leaf digests of the touched rows from
-    the updated table (wrapping sum of alive ehash)."""
-    L = state.num_buckets
+    the updated tables (wrapping sum of alive ehash), every lane."""
+    n, L = state.leaf.shape
     ent_row = _entry_rows(state)
-    touched = _set_drop(torch.zeros(L, dtype=torch.bool, device=alive2.device), rows_safe, True)
-    sel = alive2 & touched[ent_row]
-    leaf_all = torch.zeros(L + 1, dtype=_LONG, device=alive2.device)
-    leaf_all.index_add_(0, torch.where(sel, ent_row, L), torch.where(sel, ehash2, 0))
-    leaf_all = leaf_all[:L] & M32
-    return _set_drop(state.leaf, rows_safe, leaf_all[rows_clip])
+    touched = _set_drop_b(torch.zeros((n, L), dtype=torch.bool, device=alive2.device), rows_safe, True)
+    sel = alive2 & torch.gather(touched, 1, ent_row)
+    leaf_all = torch.zeros((n, L + 1), dtype=_LONG, device=alive2.device)
+    leaf_all.scatter_add_(1, torch.where(sel, ent_row, L), torch.where(sel, ehash2, 0))
+    leaf_all = leaf_all[:, :L] & M32
+    return _set_drop_b(state.leaf, rows_safe, torch.gather(leaf_all, 1, rows_clip))
+
+
+# one-table forms for ``row_apply``, which has no lane axis
+
+def _set_drop(col: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    return _set_drop_b(col[None], idx[None], vals[None] if isinstance(vals, torch.Tensor) else vals)[0]
+
+
+def _place(occupied, want, slots, slot_ok):
+    placed, used = _place_b(occupied[None], want[None], slots[None], slot_ok[None])
+    return placed[0], used[0]
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +246,8 @@ def row_apply(
     """Apply a bucket-grouped local mutation batch (``hash_map.py:198``):
     sequential shadowing, per-bucket dot counters, kill accounting.
     ``ok=False`` means some insert's window was full — the host rehashes
-    ×2 and retries."""
+    ×2 and retries. One table only: the fleet mutates through each
+    member's own replica."""
     L = state.num_buckets
     H = state.table_size
     W = state.probe_window
@@ -264,9 +319,9 @@ def row_apply(
         ctx_max=ctx_ext[:L],
         probe_window=W,
     )
-    st2 = dataclasses.replace(
-        st2, leaf=_splice_leaf(st2, alive2, st2.ehash, rows_safe, rows_clip)
-    )
+    st1, _ = _with_lanes(st2)
+    leaf = _splice_leaf_b(st1, alive2[None], st2.ehash[None], rows_safe[None], rows_clip[None])[0]
+    st2 = dataclasses.replace(st2, leaf=leaf)
 
     # telemetry count: distinct keys whose dot store changed
     earlier = torch.tril(torch.ones((m, m), dtype=torch.bool, device=dev), -1)
@@ -275,11 +330,13 @@ def row_apply(
 
     return HashApplyResult(
         st2, ok, ctr_assigned, changed.sum(), row_killed,
-        alive2.sum(), _max_window_fill(alive2, H, W),
+        alive2.sum(), _max_window_fill_b(alive2[None], H, W)[0],
     )
 
 
 class HashMergeResult(NamedTuple):
+    """Each field has a leading lane axis for a stacked store."""
+
     state: HashStore
     ok: torch.Tensor
     need_gid_grow: torch.Tensor
@@ -307,189 +364,195 @@ def clear_all(state: HashStore) -> HashStore:
 # anti-entropy merge
 
 
-def merge_rows(state: HashStore, sl: RowSlice) -> HashMergeResult:
-    """Join a received bucket slice (``hash_map.py:348``): the shared
-    interval preamble, a kill pass over the synced rows' alive entries,
-    presence by probing the slice entries' windows, and probe-placed
-    inserts."""
+def _merge_rows_b(state: HashStore, sl: RowSlice) -> HashMergeResult:
+    n, H = state.key.shape
     L = state.num_buckets
-    H = state.table_size
     W = state.probe_window
-    u, s = sl.key.shape
-    dev = sl.key.device
+    R = state.replica_capacity
+    u, s = sl.key.shape[-2:]
+    k = u * s
+    dev = state.device
+    lanes = _lanes(n, dev)  # [N, 1]
+    lanes3 = lanes[..., None]  # [N, 1, 1]
 
-    v = _slice_view(state, sl)
-    valid, rows_safe, rows_clip = v.valid, v.rows_safe, v.rows_clip
-    gids, rdense, ldense = v.gids, v.rdense, v.ldense
-    ln, ln_clip, ins, need_ctx_gap = v.ln, v.ln_clip, v.ins, v.need_ctx_gap
-
-    _, _, _, row_to_u = _row_lookup(sl.rows, L)
+    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
 
     # --- kill pass ((s1∩s2) ∪ (s1∖c2)) over the synced rows
-    ent_row = _entry_rows(state)
-    u_of = row_to_u[ent_row]  # [H]: position in sl.rows, u = not synced
+    u_of = _u_of(state, sl.rows)  # [N, H]: position in sl.rows, u = not synced
     in_slice = state.alive & (u_of < u)
     u_clip = u_of.clamp(0, u - 1)
-    node_clip = state.node.clamp(0, state.replica_capacity - 1).to(_LONG)
-    cov_hi = rdense[u_clip, node_clip]
-    cov_lo = ldense[u_clip, node_clip]
+    node_clip = state.node.clamp(0, R - 1).to(_LONG)
+    cov_hi = v.rdense[lanes, u_clip, node_clip]
+    cov_lo = v.ldense[lanes, u_clip, node_clip]
     covered = (cov_hi >= state.ctr) & (cov_lo < state.ctr)
 
     # presence: probe each slice entry's window for its exact local dot
-    r_ok = sl.alive & (ln >= 0) & valid[:, None]
-    skey_f = sl.key.reshape(u * s)
-    slots, slot_in = _window(skey_f, H, W)
+    r_ok = (sl.alive & (v.ln >= 0) & v.valid[..., None]).reshape(n, k)
+    skey_f = sl.key.reshape(n, k)
+    slots, slot_in = _window(skey_f, H, W)  # [N, K, W]
     slots_c = torch.where(slot_in, slots, H).to(_LONG)
     slots_g = slots.clamp(0, H - 1).to(_LONG)
+    at = lambda col: col[lanes3, slots_g]
     pmatch = (
-        r_ok.reshape(u * s)[:, None]
+        r_ok[..., None]
         & slot_in
-        & state.alive[slots_g]
-        & (state.key[slots_g] == skey_f[:, None])
-        & (state.node[slots_g].to(_LONG) == ln_clip.reshape(u * s)[:, None])
-        & (state.ctr[slots_g] == sl.ctr.reshape(u * s)[:, None])
+        & at(state.alive)
+        & (at(state.key) == skey_f[..., None])
+        & (at(state.node).to(_LONG) == v.ln_clip.reshape(n, k)[..., None])
+        & (at(state.ctr) == sl.ctr.reshape(n, k)[..., None])
     )
-    present = _set_drop(
-        torch.zeros(H, dtype=torch.bool, device=dev), torch.where(pmatch, slots_c, H), True
+    present = _set_drop_b(
+        torch.zeros((n, H), dtype=torch.bool, device=dev), torch.where(pmatch, slots_c, H), True
     )
 
     die = in_slice & covered & ~present
     alive1 = state.alive & ~die
-    n_kill_row = _count_drop(u, torch.where(die, u_of, u))
+    n_kill_row = _count_drop_b(u, torch.where(die, u_of, u))
 
     # --- insert pass (s2 ∖ c1): probe-place into dead window lanes
-    ins_f = ins.reshape(u * s)
-    placed, alive2 = _place(alive1, ins_f, slots, slot_in)
-    need_fill_grow = (ins_f & (placed < 0)).any()
+    ins_f = v.ins.reshape(n, k)
+    placed, alive2 = _place_b(alive1, ins_f, slots, slot_in)
+    need_fill_grow = (ins_f & (placed < 0)).any(dim=1)
     tgt = torch.where(placed >= 0, placed, H)
 
-    eh_ins = entry_hash(
-        sl.key,
-        _table_lookup(sl.ctx_gid, sl.node.clamp(0, sl.ctx_gid.shape[0] - 1)),
-        sl.ctr,
-        sl.ts,
-        sl.valh,
-    )
-    ins_rank = (torch.cumsum(ins.to(_LONG), 1) - 1) & M32
-    arr_new = (state.rowseq[rows_clip][:, None] + ins_rank) & M32
+    rr = sl.ctx_gid.shape[-1]
+    gid_ins = torch.gather(sl.ctx_gid[:, None, :].expand(n, u, rr), -1, sl.node.clamp(0, rr - 1).to(_LONG))
+    eh_ins = entry_hash(sl.key, gid_ins, sl.ctr, sl.ts, sl.valh)
+    ins_rank = (torch.cumsum(v.ins.to(_LONG), -1) - 1) & M32
+    arr_new = (state.rowseq[lanes, v.rows_clip][..., None] + ins_rank) & M32
 
-    put = lambda col, vals: _set_drop(col, tgt, vals.reshape(u * s))
-    n_ins_row = ins.to(torch.int32).sum(dim=1, dtype=torch.int32)
-    rowseq_ext = torch.cat([state.rowseq, state.rowseq.new_zeros(1)])
-    rowseq_ext.index_add_(0, rows_safe, n_ins_row.to(_LONG))
-    ctx2 = torch.maximum(v.local_ctx, rdense)
-    ctx_ext = torch.cat([state.ctx_max, state.ctx_max.new_zeros(1, state.replica_capacity)])
-    ctx_ext[rows_safe] = ctx2
+    put = lambda col, vals: _set_drop_b(col, tgt, vals)
+    n_ins_row = v.ins.sum(dim=-1, dtype=torch.int32)
+    rowseq_ext = torch.cat([state.rowseq, state.rowseq.new_zeros(n, 1)], 1)
+    rowseq_ext.scatter_add_(1, v.rows_safe, n_ins_row.to(_LONG))
+    ctx_ext = torch.cat([state.ctx_max, state.ctx_max.new_zeros(n, 1, R)], 1)
+    ctx_ext[lanes, v.rows_safe] = torch.maximum(v.local_ctx, v.rdense)
 
     st2 = HashStore(
         key=put(state.key, sl.key),
         valh=put(state.valh, sl.valh),
         ts=put(state.ts, sl.ts),
-        node=put(state.node, ln_clip),
+        node=put(state.node, v.ln_clip),
         ctr=put(state.ctr, sl.ctr),
         alive=alive2,
         ehash=put(state.ehash, eh_ins),
         arr=put(state.arr, arr_new),
         leaf=state.leaf,
-        rowseq=rowseq_ext[:L] & M32,
-        ctx_gid=gids.ctx_gid,
-        ctx_max=ctx_ext[:L],
+        rowseq=rowseq_ext[:, :L] & M32,
+        ctx_gid=v.gids.ctx_gid,
+        ctx_max=ctx_ext[:, :L],
         probe_window=W,
     )
     st2 = dataclasses.replace(
-        st2, leaf=_splice_leaf(st2, alive2, st2.ehash, rows_safe, rows_clip)
+        st2, leaf=_splice_leaf_b(st2, alive2, st2.ehash, v.rows_safe, v.rows_clip)
     )
 
-    ok = ~(gids.overflow | need_fill_grow | need_ctx_gap)
+    ok = ~(v.gids.overflow | need_fill_grow | v.need_ctx_gap)
     return HashMergeResult(
         st2,
         ok,
-        gids.overflow,
+        v.gids.overflow,
         need_fill_grow,
-        need_ctx_gap,
-        n_ins_row.sum(),
-        n_kill_row.sum(),
+        v.need_ctx_gap,
+        n_ins_row.sum(dim=-1),
+        n_kill_row.sum(dim=-1),
         n_ins_row,
         n_kill_row,
         v.gap_row,
-        alive2.sum(),
-        _max_window_fill(alive2, H, W),
+        alive2.sum(dim=-1),
+        _max_window_fill_b(alive2, H, W),
     )
 
 
+def merge_rows(state: HashStore, sl: RowSlice) -> HashMergeResult:
+    """Join a received bucket slice (``hash_map.py:348``): the shared
+    interval preamble, a kill pass over the synced rows' alive entries,
+    presence by probing the slice entries' windows, and probe-placed
+    inserts. ``state`` is one table or a stack (``[N, H]`` columns) with
+    one slice per lane (the fleet's batched merge; lane k is the solo
+    merge on lane k). Never writes into its inputs."""
+    st, single = _with_lanes(state)
+    res = _merge_rows_b(st, _lane_slice(sl, st.key.shape[0]))
+    return _lane0(res) if single else res
+
+
 # ---------------------------------------------------------------------------
-# extraction (the dense, non-padded wire path)
+# extraction (the dense, non-padded wire path). Each op takes one table
+# or a stack with per-lane arguments (rows ``[N, U]``, one self slot,
+# writer gid and ``lo`` row per lane).
+
+
+def _row_counts_b(state: HashStore, rows) -> torch.Tensor:
+    u = rows.shape[-1]
+    u_of = _u_of(state, rows)
+    return _count_drop_b(u, torch.where(state.alive & (u_of < u), u_of, u))
 
 
 def row_counts(state: HashStore, rows: torch.Tensor) -> torch.Tensor:
     """int32[U]: alive entries per requested sync row."""
-    u = rows.shape[0]
-    _, _, _, row_to_u = _row_lookup(rows, state.num_buckets)
-    u_of = row_to_u[_entry_rows(state)]
-    sel = state.alive & (u_of < u)
-    return _count_drop(u, torch.where(sel, u_of, u))
+    st, single, (rows,) = _lane_args(state, rows)
+    res = _row_counts_b(st, rows)
+    return res[0] if single else res
 
 
-def own_delta_counts(state: HashStore, rows, self_slot: int, lo) -> torch.Tensor:
-    """int32[U]: own-writer entries with counter in ``(lo, ∞)`` per
-    requested row."""
-    u = rows.shape[0]
-    _, _, _, row_to_u = _row_lookup(rows, state.num_buckets)
-    u_of = row_to_u[_entry_rows(state)]
-    u_clip = u_of.clamp(0, u - 1)
-    sel = (
+def _own_delta_sel(state: HashStore, u_of, self_slot, lo) -> torch.Tensor:
+    """bool[N, H]: own-writer entries of the requested rows with counter
+    in ``(lo, ∞)``."""
+    u = lo.shape[-1]
+    return (
         state.alive
         & (u_of < u)
-        & (state.node == self_slot)
-        & (state.ctr > lo[u_clip])
+        & (state.node == self_slot[:, None])
+        & (state.ctr > torch.gather(lo, 1, u_of.clamp(0, u - 1)))
     )
-    return _count_drop(u, torch.where(sel, u_of, u))
 
 
-def _pack_rows(state: HashStore, rows: torch.Tensor, sel: torch.Tensor, lanes: int):
-    """Pack the selected entries into a dense ``[U, lanes]`` grid, each
-    row in arrival (``arr``) order, dead lanes zeroed. One stable sort by
-    (row position, arr) in unsigned order; per-row lane = global rank −
-    row start."""
-    u = rows.shape[0]
-    H = state.table_size
-    dev = rows.device
-    _, _, _, row_to_u = _row_lookup(rows, state.num_buckets)
-    u_of = row_to_u[_entry_rows(state)]
+def own_delta_counts(state: HashStore, rows, self_slot, lo) -> torch.Tensor:
+    """int32[U]: own-writer entries with counter in ``(lo, ∞)`` per
+    requested row."""
+    st, single, (rows, self_slot, lo) = _lane_args(state, rows, self_slot, lo)
+    u = rows.shape[-1]
+    u_of = _u_of(st, rows)
+    res = _count_drop_b(u, torch.where(_own_delta_sel(st, u_of, self_slot, lo), u_of, u))
+    return res[0] if single else res
+
+
+def _pack_rows_b(state: HashStore, u_of: torch.Tensor, sel: torch.Tensor, u: int, lanes: int):
+    """Pack the selected entries into a dense ``[N, U, lanes]`` grid,
+    each row in arrival (``arr``) order, dead lanes zeroed. One stable
+    sort per table by (row position, arr) in unsigned order; per-row
+    lane = rank in the table − row start."""
+    n, H = state.key.shape
+    dev = state.device
+    li = _lanes(n, dev)
     u_clip = u_of.clamp(0, u - 1)
 
     sortkey = torch.where(sel, _flip((u_of << 32) | state.arr), I64_MAX)
-    _, order = torch.sort(sortkey, stable=True)
-    sel_s = sel[order]
-    u_s = u_clip[order]
-    counts = _count_drop(u, torch.where(sel, u_of, u)).to(_LONG)
-    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
-    pos = torch.arange(H, dtype=_LONG, device=dev) - starts[u_s]
+    _, order = torch.sort(sortkey, dim=1, stable=True)
+    sel_s = torch.gather(sel, 1, order)
+    u_s = torch.gather(u_clip, 1, order)
+    counts = _count_drop_b(u, torch.where(sel, u_of, u)).to(_LONG)
+    starts = torch.cumsum(counts, 1) - counts
+    pos = torch.arange(H, dtype=_LONG, device=dev) - torch.gather(starts, 1, u_s)
     tgt_u = torch.where(sel_s & (pos < lanes), u_s, u)
     tgt_p = pos.clamp(0, lanes - 1)
 
     def pack(col):
-        out = torch.zeros((u + 1, lanes), dtype=col.dtype, device=dev)
-        out[tgt_u, tgt_p] = col[order]
-        return out[:u]
+        out = torch.zeros((n, u + 1, lanes), dtype=col.dtype, device=dev)
+        out[li, tgt_u, tgt_p] = torch.gather(col, 1, order)
+        return out[:, :u]
 
     cols = {c: pack(getattr(state, c)) for c in ("key", "valh", "ts", "node", "ctr")}
-    alive = torch.zeros((u + 1, lanes), dtype=torch.bool, device=dev)
-    alive[tgt_u, tgt_p] = sel_s
-    return cols, alive[:u]
+    return cols, pack(sel)
 
 
-def extract_rows_packed(state: HashStore, rows: torch.Tensor, lanes: int) -> RowSlice:
-    """Dense full-row state slice (``ctx_lo = 0``) for the requested
-    sync rows."""
+def _extract_rows_packed_b(state: HashStore, rows, lanes: int) -> RowSlice:
     L = state.num_buckets
-    u = rows.shape[0]
-    _, _, _, row_to_u = _row_lookup(rows, L)
-    u_of = row_to_u[_entry_rows(state)]
-    sel = state.alive & (u_of < u)
-    cols, alive = _pack_rows(state, rows, sel, lanes)
+    u = rows.shape[-1]
+    u_of = _u_of(state, rows)
+    cols, alive = _pack_rows_b(state, u_of, state.alive & (u_of < u), u, lanes)
     valid = rows >= 0
-    rows_clip = rows.clamp(0, L - 1).to(_LONG)
+    ctx = state.ctx_max[_lanes(rows.shape[0], rows.device), rows.clamp(0, L - 1).to(_LONG)]
     return RowSlice(
         rows=rows,
         key=cols["key"],
@@ -498,35 +561,28 @@ def extract_rows_packed(state: HashStore, rows: torch.Tensor, lanes: int) -> Row
         node=cols["node"],
         ctr=cols["ctr"],
         alive=alive,
-        ctx_rows=state.ctx_max[rows_clip] * valid[:, None],
-        ctx_lo=torch.zeros_like(state.ctx_max[rows_clip]),
+        ctx_rows=ctx * valid[..., None],
+        ctx_lo=torch.zeros_like(ctx),
         ctx_gid=state.ctx_gid,
     )
 
 
-def extract_own_delta_packed(
-    state: HashStore,
-    rows: torch.Tensor,
-    self_slot: int,
-    gid_self: torch.Tensor,
-    lo: torch.Tensor,
-    lanes: int,
-) -> RowSlice:
-    """Dense own-writer delta-interval slice claiming exactly
-    ``(lo, ctx_max]`` per row."""
+def extract_rows_packed(state: HashStore, rows: torch.Tensor, lanes: int) -> RowSlice:
+    """Dense full-row state slice (``ctx_lo = 0``) for the requested
+    sync rows, ``lanes`` entries wide."""
+    st, single, (rows,) = _lane_args(state, rows)
+    res = _extract_rows_packed_b(st, rows, lanes)
+    return _lane0(res) if single else res
+
+
+def _extract_own_delta_packed_b(state: HashStore, rows, self_slot, gid_self, lo, lanes: int) -> RowSlice:
     L = state.num_buckets
-    u = rows.shape[0]
-    valid, _, rows_clip, row_to_u = _row_lookup(rows, L)
-    u_of = row_to_u[_entry_rows(state)]
-    u_clip = u_of.clamp(0, u - 1)
-    sel = (
-        state.alive
-        & (u_of < u)
-        & (state.node == self_slot)
-        & (state.ctr > lo[u_clip])
-    )
-    cols, alive = _pack_rows(state, rows, sel, lanes)
-    hi = state.ctx_max[rows_clip, self_slot] * valid
+    u = rows.shape[-1]
+    li = _lanes(rows.shape[0], rows.device)
+    u_of = _u_of(state, rows)
+    cols, alive = _pack_rows_b(state, u_of, _own_delta_sel(state, u_of, self_slot, lo), u, lanes)
+    valid = rows >= 0
+    hi = state.ctx_max[li, rows.clamp(0, L - 1).to(_LONG), self_slot[:, None]] * valid
     return RowSlice(
         rows=rows,
         key=cols["key"],
@@ -535,10 +591,18 @@ def extract_own_delta_packed(
         node=torch.zeros_like(cols["node"]),
         ctr=cols["ctr"],
         alive=alive,
-        ctx_rows=hi[:, None],
-        ctx_lo=(lo * valid)[:, None],
-        ctx_gid=gid_self.reshape(1),
+        ctx_rows=hi[..., None],
+        ctx_lo=(lo * valid)[..., None],
+        ctx_gid=gid_self[:, None],
     )
+
+
+def extract_own_delta_packed(state: HashStore, rows, self_slot, gid_self, lo, lanes: int) -> RowSlice:
+    """Dense own-writer delta-interval slice claiming exactly
+    ``(lo, ctx_max]`` per row."""
+    st, single, (rows, self_slot, gid_self, lo) = _lane_args(state, rows, self_slot, gid_self, lo)
+    res = _extract_own_delta_packed_b(st, rows, self_slot, gid_self, lo, lanes)
+    return _lane0(res) if single else res
 
 
 # ---------------------------------------------------------------------------
@@ -572,22 +636,24 @@ def winners_for_keys_ref(state: HashStore, khash: torch.Tensor) -> KeyWinners:
 
 
 def winner_all(state: HashStore):
-    """Whole-table LWW winners: one lexicographic sort of the flat table."""
-    gid = _table_lookup(state.ctx_gid, state.node.clamp(0, state.replica_capacity - 1))
-    one = lambda a: a[None, :]
-    return _sorted_winners(
-        one(state.key), one(state.ts), one(gid), one(state.ctr),
-        one(state.alive), one(state.valh),
+    """Whole-table LWW winners: one lexicographic sort of each flat
+    table (``[1, H]`` fields, ``[N, 1, H]`` for a stack)."""
+    st, single = _with_lanes(state)
+    gid = torch.gather(st.ctx_gid, 1, st.node.clamp(0, st.replica_capacity - 1).to(_LONG))
+    one = lambda a: a[:, None, :]
+    res = _sorted_winners(
+        one(st.key), one(st.ts), one(gid), one(st.ctr), one(st.alive), one(st.valh),
     )
+    return _lane0(res) if single else res
 
 
 def winner_rows_packed(state: HashStore, rows: torch.Tensor, lanes: int):
     """Per-key LWW winners within the given sync rows."""
-    u = rows.shape[0]
-    _, _, _, row_to_u = _row_lookup(rows, state.num_buckets)
-    u_of = row_to_u[_entry_rows(state)]
-    sel = state.alive & (u_of < u)
-    cols, alive = _pack_rows(state, rows, sel, lanes)
+    st, _, (rows,) = _lane_args(state, rows)
+    u = rows.shape[-1]
+    u_of = _u_of(st, rows)
+    cols, alive = _pack_rows_b(st, u_of, st.alive & (u_of < u), u, lanes)
+    cols, alive = {c: x[0] for c, x in cols.items()}, alive[0]
     gid = _table_lookup(state.ctx_gid, cols["node"].clamp(0, state.replica_capacity - 1))
     return _sorted_winners(cols["key"], cols["ts"], gid, cols["ctr"], alive, cols["valh"])
 

@@ -1,0 +1,738 @@
+"""Batched replica fleets — one process, many replicas, one device call
+a wave: the PyTorch port of ``delta_crdt_ex_tpu/runtime/fleet.py``.
+
+A :class:`Fleet` owns N member replicas' event loops. It drains all N
+mailboxes a :meth:`~Fleet.tick` and joins every member's coalesce groups
+with ONE batched merge over a leading replica axis
+(:func:`delta_crdt_ex_tpu_torch.runtime.transition.fleet_merge_rows`)
+instead of one merge (and one host loop) per replica.
+
+Semantics are the solo replica's, bit for bit:
+
+- grouping reuses each member's own ``_coalesce_groups`` pass, so the
+  combined slices are what the solo grouped path would merge;
+- lane k of a batched call is the solo op on lane k's inputs;
+- seq numbering and telemetry fan back out per replica through the same
+  bookkeeping tail as the solo grouped path
+  (``Replica._commit_entries_group``).
+
+Scheduling is wave-ordered: each member's drained mailbox splits into
+units (a coalesce group, or one other message), and wave w of every
+member runs before wave w+1, so per-member arrival order holds while
+the units of one wave share a dispatch. Groups bucket by state geometry
+and entry-lane tier; ragged row counts and writer tables pad per lane,
+and the replica axis pads to a pow2 lane tier with all-padding lanes
+(:func:`~delta_crdt_ex_tpu_torch.models.binned_map.stack_entry_slices`).
+What a batch cannot carry takes the per-replica path: buckets of one,
+diff subscribers, growth and gap escapes (per-lane ``ok``), and
+members whose state moved between staging and commit.
+
+A stable batch's member states stay RESIDENT as the stacked result of
+the previous dispatch (``Replica.state`` copies a lane out only when
+something per-replica reads it), so a steady state neither stacks nor
+unstacks. The egress half is batched too (:meth:`Fleet.sync_tick`): the
+due members' digest trees, eager-delta extractions and own-counter
+columns each run as one call per shape bucket, fanned back out through
+the replicas' own plan/emit bookkeeping.
+
+Not ported yet, each raising ``NotImplementedError`` naming its slice
+(``ROADMAP.md`` queue 1): ``mesh=`` (multi-device mesh); ``obs=``,
+:meth:`Fleet.frontdoor`, :meth:`Fleet.obs_varz` and :meth:`Fleet.health`
+(serving and observability). Fleet frames over TCP come with the WAL,
+storage and log shipping slice: the port has only ``LocalTransport``,
+so a sync tick sends directly. Port members have no WAL or checkpoint
+duty and no relay epoch (tree gossip), so those steps are absent.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from delta_crdt_ex_tpu_torch.models.binned import pow2_tier
+from delta_crdt_ex_tpu_torch.models.binned_map import stack_entry_slices
+from delta_crdt_ex_tpu_torch.ops.binned import _i64
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
+from delta_crdt_ex_tpu_torch.runtime.replica import Replica, _LaneLevels, _StackedLevels
+from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils.transfers import as_u32
+
+# audited device↔host transfer sites (the JAX fleet's labels)
+_TR_DISPATCH_RESULT = transfers.register("fleet.dispatch_result")
+_TR_DISPATCH_COUNTS = transfers.register("fleet.dispatch_counts")
+_TR_OWN_CTR_COLUMNS = transfers.register("fleet.own_ctr_columns")
+_TR_EGRESS_EXTRACT = transfers.register("fleet.egress_extract")
+
+#: RowSlice entry columns carried at the dense lane tier (trimmed back
+#: per member on the hash store; the ctx tables are never lane-tiered)
+_ENTRY_LANE_COLS = ("key", "valh", "ts", "node", "ctr", "alive")
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet; it comes with the {slice_name} slice (ROADMAP.md queue 1)"
+    )
+
+
+def check_unported(obs=None, mesh=None) -> None:
+    """Raise for the fleet options of later slices (``mesh=``,
+    ``obs=``); their off values pass."""
+    if mesh is not None and mesh is not False:
+        raise _later("the mesh-sharded fleet (mesh=)", "multi-device mesh")
+    if obs is not None:
+        raise _later("the fleet's observability plane (obs=)", "serving and observability")
+
+
+def _lane_slice(host, lane: int, rows: np.ndarray, tier: "int | None"):
+    """Lane ``lane`` of a host-fetched stacked RowSlice as the member's
+    solo slice: the hash store packs each row's entries as an
+    arrival-ordered prefix with zeroed dead lanes, so trimming the
+    entry-lane axis to the member's own pow2 tier gives its solo
+    extraction bit for bit."""
+    out = {}
+    for c in host._fields:
+        a = getattr(host, c)[lane]
+        if tier is not None and c in _ENTRY_LANE_COLS:
+            a = a[:, :tier]
+        out[c] = a
+    out["rows"] = rows  # the job's own planning array (same values)
+    return type(host)(**out)
+
+
+class _EgressMember:
+    """One member's snapshot through a batched sync tick: the (state,
+    version) pair every batched call reads, the planned push jobs, and
+    the solo flag for members whose version moved."""
+
+    __slots__ = ("rep", "state", "version", "need_ctr", "need_tree", "own_ctr", "jobs", "solo")
+
+    def __init__(self, rep, state, version, need_ctr, need_tree):
+        self.rep = rep
+        self.state = state
+        self.version = version
+        self.need_ctr = need_ctr
+        self.need_tree = need_tree
+        self.own_ctr = None
+        self.jobs = None
+        self.solo = False
+
+
+class _Staged:
+    """One member's staged coalesce group, awaiting a batched dispatch."""
+
+    __slots__ = ("rep", "msgs", "sl", "offsets", "version", "key")
+
+    def __init__(self, rep, msgs, sl, offsets, version, geometry):
+        self.rep = rep
+        self.msgs = msgs
+        self.sl = sl
+        self.offsets = offsets
+        self.version = version
+        # batch-compat bucket: identical state geometry and entry-lane
+        # tier; row counts and writer-table widths may be ragged
+        self.key = geometry + (sl.key.shape[1],)
+
+
+class Fleet:
+    """Scheduler owning N member replicas' event loops.
+
+    Members must be UNTHREADED (``threaded=False``): the fleet is their
+    event loop. Deterministic drives call :meth:`tick` / :meth:`drain` /
+    :meth:`sync_tick`; :meth:`start` runs one background thread serving
+    every member's periodic sync and the batched ingress drain. All
+    members keep their state on one device.
+    """
+
+    def __init__(self, replicas: list, *, min_batch: int = 2, obs=None, mesh=None):
+        check_unported(obs=obs, mesh=mesh)
+        if not replicas:
+            raise ValueError("a fleet needs at least one replica")
+        for r in replicas:
+            if not isinstance(r, Replica):
+                raise TypeError(f"not a Replica: {r!r}")
+            if r._thread is not None:
+                raise ValueError(
+                    f"replica {r.name!r} runs its own event loop; fleet "
+                    "members must be started with threaded=False"
+                )
+            if r._in_fleet:
+                raise ValueError(
+                    f"replica {r.name!r} already belongs to a fleet; two "
+                    "fleets draining one mailbox would race"
+                )
+        devices = {r.device for r in replicas}
+        if len(devices) > 1:
+            raise ValueError(
+                f"fleet members keep their states on different devices "
+                f"({sorted(map(str, devices))}); a fleet stacks them on one"
+            )
+        self.replicas = list(replicas)
+        self.device = replicas[0].device
+        #: smallest batch worth stacking: below it the per-replica
+        #: grouped path is strictly cheaper
+        self.min_batch = max(2, int(min_batch))
+        self._lock = threading.Lock()
+        #: resident stacked states per batch bucket: (members, lanes) →
+        #: (member state versions at commit, stacked store). Reused while
+        #: no member's state moved outside the batched dispatch; dropped
+        #: whenever any lane fell back (its lane in the result is stale)
+        self._stack_cache: dict = {}
+        self._stack_cache_cap = 32
+        self._stack_hits = 0
+        self._stack_misses = 0
+        self._ticks = 0
+        self._tick_time = 0.0
+        self._dispatches = 0
+        self._batched_messages = 0
+        self._occupancy_hist: dict[int, int] = {}
+        self._real_rows = 0
+        self._padded_rows = 0
+        self._fallbacks = {"singleton": 0, "shape": 0, "escape": 0, "stale": 0}
+        self._egress_ticks = 0
+        self._egress_members = 0
+        self._egress_time = 0.0
+        self._egress_dispatches = 0
+        self._egress_batched_jobs = 0
+        self._egress_solo_jobs = 0
+        self._egress_solo_members = 0
+        self._egress_occupancy: dict[int, int] = {}
+        self._egress_tree_batched = 0
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: threading.Thread | None = None
+        for r in self.replicas:
+            # member notify() wakes the FLEET loop, not a per-replica one
+            r.notify = self._member_notify  # type: ignore[method-assign]
+            r._in_fleet = True
+
+    def _member_notify(self) -> None:
+        if self._thread is not None:
+            self._wake.set()
+
+    # ------------------------------------------------------------------
+    # ingress: drain all mailboxes, dispatch in waves
+
+    def tick(self) -> int:
+        """Drain one bounded batch from every member's mailbox and handle
+        it — batched where compatible, per replica everywhere else.
+        Returns the messages handled."""
+        t0 = time.perf_counter()
+        per_member: list = []
+        n_msgs = 0
+        for rep in self.replicas:
+            batch = rep.transport.drain_nowait(rep.addr, rep.ingress_batch)
+            if batch:
+                n_msgs += len(batch)
+                per_member.append((rep, self._units(rep, batch)))
+        wave = 0
+        while True:
+            pairs = []
+            busy = False
+            for rep, units in per_member:
+                if wave >= len(units):
+                    continue
+                busy = True
+                kind, payload = units[wave]
+                if kind == "group":
+                    pairs.append((rep, payload))
+                else:
+                    rep.handle(payload)
+            if not busy:
+                break
+            if pairs:
+                self._dispatch_wave(pairs)
+            wave += 1
+        if n_msgs:
+            with self._lock:
+                self._ticks += 1
+                self._tick_time += time.perf_counter() - t0
+        return n_msgs
+
+    def drain(self, max_rounds: int = 10_000) -> int:
+        """Deterministic drive: tick until every mailbox is empty."""
+        total = 0
+        for _ in range(max_rounds):
+            n = self.tick()
+            if n == 0:
+                return total
+            total += n
+        raise RuntimeError("fleet did not quiesce")
+
+    def _units(self, rep, batch: list) -> list:
+        """Split one member's drained batch into ordered units, as
+        ``Replica._handle_batch`` does: consecutive ``EntriesMsg`` runs
+        become the member's own coalesce groups; every other message is a
+        unit of its own."""
+        if not rep.ingress_coalesce or rep.on_diffs is not None:
+            return [("msg", m) for m in batch]
+        units: list = []
+        run: list = []
+        for m in batch:
+            if isinstance(m, sync_proto.EntriesMsg):
+                run.append(m)
+                continue
+            if run:
+                units += [("group", g) for g in rep._coalesce_groups(run)]
+                run = []
+            units.append(("msg", m))
+        if run:
+            units += [("group", g) for g in rep._coalesce_groups(run)]
+        return units
+
+    def _solo(self, rep, msgs: list, reason: str) -> None:
+        with self._lock:
+            self._fallbacks[reason] += 1
+        rep.fleet_handle_group(msgs)
+
+    def _dispatch_wave(self, pairs: list) -> None:
+        """Stage every (member, group) of one wave, bucket by shape
+        compatibility, and run one batched dispatch per bucket."""
+        buckets: dict[tuple, list] = {}
+        for rep, msgs in pairs:
+            prep = rep.fleet_prepare(msgs)
+            if prep is None:
+                self._solo(rep, msgs, "shape")
+                continue
+            sl, offsets, version, geometry = prep
+            staged = _Staged(rep, msgs, sl, offsets, version, geometry)
+            buckets.setdefault(staged.key, []).append(staged)
+        for members in buckets.values():
+            if len(members) < self.min_batch:
+                for st in members:
+                    self._solo(st.rep, st.msgs, "singleton")
+                continue
+            self._dispatch_bucket(members)
+
+    @staticmethod
+    def _lane_tier(n: int) -> int:
+        """The replica axis of one batched call: the pow2 lane tier.
+        Torch compiles nothing per shape; the tier keeps the padding,
+        and with it ``stats()``'s occupancy and fill ratio, the JAX
+        fleet's."""
+        return pow2_tier(n, floor=2)
+
+    def _stacked_states(self, reps: list, lanes: int):
+        """The stacked input states of one bucket: the previous
+        dispatch's RESULT when no member's state moved since
+        (``_state_version`` match), else restacked from the members'
+        states, padding lanes copying member 0 (their slices are
+        all-padding, so the merge leaves them as they are)."""
+        key = tuple(id(r) for r in reps) + (lanes,)
+        versions = [r._state_version for r in reps]
+        with self._lock:
+            hit = self._stack_cache.get(key)
+            if hit is not None and hit[0] == versions:
+                self._stack_hits += 1
+                return hit[1], key
+            self._stack_misses += 1
+        states = [r.state for r in reps]
+        states += [states[0]] * (lanes - len(states))
+        return transition.stack_states(states), key
+
+    def _dispatch_bucket(self, members: list) -> None:
+        t0 = time.perf_counter()
+        n = len(members)
+        lanes = self._lane_tier(n)
+        sl, real_rows = stack_entry_slices([st.sl for st in members], lanes=lanes, device=self.device)
+        reps = [st.rep for st in members]
+        stacked_in, cache_key = self._stacked_states(reps, lanes)
+        # the bucket key holds the backend tag, so every member of a
+        # bucket shares one store backend and its batched merge
+        res = reps[0].model.fleet_merge_rows(stacked_in, sl)
+        # hash backend: per-lane window pressure rides the same host
+        # read, so the growth advisory below costs no extra sync
+        wfill = getattr(res, "max_window_fill", None)
+        flags = [res.ok.to(torch.int64), res.n_killed.to(torch.int64)]
+        if wfill is not None:
+            flags.append(wfill.to(torch.int64))
+        got = _TR_DISPATCH_RESULT.get(torch.stack(flags))  # one read for the whole bucket
+        ok, n_killed = got[0], got[1]
+        probe_window = getattr(stacked_in, "probe_window", 0)
+        dt = time.perf_counter() - t0
+        # per-row counts are read lazily, once for the whole stack, and
+        # only if a SYNC_DONE handler asks. The closure holds JUST the
+        # two count tensors: holding ``res`` would pin the stacked result
+        # for as long as a member keeps the function
+        counts_cell: list = []
+
+        def counts_for(lane, ins_rows=res.n_ins_row, kill_rows=res.n_kill_row):
+            def fn():
+                if not counts_cell:
+                    counts_cell.append(_TR_DISPATCH_COUNTS.get(torch.stack([ins_rows, kill_rows])))
+                both = counts_cell[0]
+                return both[0][lane], both[1][lane]
+
+            return fn
+
+        all_committed = True
+        committed = 0
+        committed_versions: list[int] = []
+        for lane, st in enumerate(members):
+            if not ok[lane]:
+                # growth/gap escape: the solo path owns the retry tiers
+                # and the gap partition and repair
+                all_committed = False
+                self._solo(st.rep, st.msgs, "escape")
+                continue
+            new_version = st.rep.fleet_commit(
+                st.msgs, st.offsets, res.state, lane, counts_for(lane), int(n_killed[lane]), dt / n, st.version,
+            )
+            if new_version is not None:
+                committed += 1
+                committed_versions.append(new_version)
+                if wfill is not None and st.rep.model.load_high(int(got[2][lane]), probe_window):
+                    # grow OFF the batch path: the version bump drops the
+                    # member from the resident stack, and it re-buckets
+                    # at its new capacity next tick
+                    st.rep.grow_store_advised()
+                    all_committed = False
+            else:
+                # the member's state moved between staging and commit:
+                # the batched merge read a stale state — replay solo
+                all_committed = False
+                self._solo(st.rep, st.msgs, "stale")
+        with self._lock:
+            if all_committed:
+                # the result becomes the members' resident state; the
+                # recorded versions are the COMMIT-returned ones (a
+                # re-read here could mask a concurrent mutation)
+                self._stack_cache[cache_key] = (committed_versions, res.state)
+                while len(self._stack_cache) > self._stack_cache_cap:
+                    self._stack_cache.pop(next(iter(self._stack_cache)))
+            else:
+                self._stack_cache.pop(cache_key, None)
+            self._dispatches += 1
+            self._batched_messages += sum(len(st.msgs) for st in members)
+            self._occupancy_hist[committed] = self._occupancy_hist.get(committed, 0) + 1
+            self._real_rows += real_rows
+            self._padded_rows += lanes * int(sl.rows.shape[1])
+        if telemetry.has_handlers(telemetry.FLEET_DISPATCH):
+            telemetry.execute(
+                telemetry.FLEET_DISPATCH,
+                {
+                    "replicas": n,
+                    "lanes": lanes,
+                    "messages": sum(len(st.msgs) for st in members),
+                    "rows": real_rows,
+                    "padded_rows": lanes * int(sl.rows.shape[1]),
+                    "duration_s": dt,
+                },
+                {"fleet": id(self)},
+            )
+
+    # ------------------------------------------------------------------
+    # batched sync-tick egress: one batched tree build and one batched
+    # extraction per shape bucket, fanned back out through the
+    # replicas' own plan/emit bookkeeping
+
+    def sync_tick(self, members: "list | None" = None) -> int:
+        """One sync tick for ``members`` (default: every member) with the
+        egress half batched across the fleet: each member's planning
+        (``Replica._eager_jobs``) and emission (``_emit_push_job`` /
+        ``_open_walks``) run under its own lock as ``sync_to_all`` would,
+        and the device work between them — the own-counter columns, the
+        eager-delta and full-row extractions, the digest-tree builds —
+        runs as one call per shape bucket. Lane k of each is the solo
+        call on lane k's inputs, so wire bytes, openers and cursors are
+        the per-member loop's. Returns the members synced."""
+        reps = list(self.replicas if members is None else members)
+        if not reps:
+            return 0
+        t0 = time.perf_counter()
+        if len(reps) < self.min_batch:
+            for rep in reps:
+                rep.sync_to_all()
+            with self._lock:
+                self._egress_ticks += 1
+                self._egress_members += len(reps)
+                self._egress_solo_members += len(reps)
+                self._egress_time += time.perf_counter() - t0
+            return len(reps)
+
+        # phase 0 — per member, under its lock: flush pending mutations,
+        # refresh monitors, snapshot (state, version) as THE source of
+        # every batched call below
+        staged: list = []
+        for rep in reps:
+            with rep._lock:
+                rep._flush()
+                rep._monitor_neighbours()
+                staged.append(_EgressMember(
+                    rep, rep.state, rep._state_version, rep._own_ctr_cache is None, rep._tree is None,
+                ))
+
+        # phase 0.5 — the cursor sources: one gather and one transfer per
+        # writer-table geometry instead of N column reads
+        ctr_groups: dict[tuple, list] = {}
+        for ent in staged:
+            if ent.need_ctr:
+                ctr_groups.setdefault(tuple(ent.state.ctx_max.shape), []).append(ent)
+        for items in ctr_groups.values():
+            if len(items) < self.min_batch:
+                continue  # _eager_jobs reads those solo
+            lanes = self._lane_tier(len(items))
+            tables = [e.state.ctx_max for e in items]
+            tables += [tables[0]] * (lanes - len(items))
+            slots = torch.zeros(lanes, dtype=torch.int64)
+            slots[: len(items)] = torch.tensor([e.rep.self_slot for e in items])
+            cols = as_u32(_TR_OWN_CTR_COLUMNS.get(transition.fleet_own_ctr_columns(
+                transition.stack_pytrees(*tables), slots.to(self.device)
+            )))
+            for lane, e in enumerate(items):
+                e.own_ctr = cols[lane]
+
+        # phase 1 — per member, under its lock: plan the tick's push jobs
+        # against the snapshot (a member whose version moved replays the
+        # whole tick solo: its cursors could overrun the shipped claims)
+        for ent in staged:
+            rep = ent.rep
+            with rep._lock:
+                if rep._state_version != ent.version:
+                    ent.solo = True
+                    continue
+                if ent.own_ctr is not None and rep._own_ctr_cache is None:
+                    rep._own_ctr_cache = ent.own_ctr
+                ent.jobs = rep._eager_jobs()
+
+        # phase 2a — bucket push jobs by (backend geometry, job kind, row
+        # tier): one batched extraction and one transfer per bucket
+        buckets: dict[tuple, list] = {}
+        for ent in staged:
+            if ent.solo or not ent.jobs:
+                continue
+            geo = ent.rep.model.geometry(ent.state)
+            for job in ent.jobs:
+                buckets.setdefault(geo + (job.kind, job.rows.shape[0]), []).append((ent.rep, ent.state, job))
+        extracted: dict[int, Any] = {}
+        n_dispatch = n_batched_jobs = n_solo_jobs = 0
+        occupancy: dict[int, int] = {}
+        for items in buckets.values():
+            if len(items) < self.min_batch:
+                n_solo_jobs += len(items)
+                continue
+            self._extract_bucket(items, extracted)
+            n_dispatch += 1
+            n_batched_jobs += len(items)
+            occupancy[len(items)] = occupancy.get(len(items), 0) + 1
+
+        # phase 2b — batched digest-tree builds (leaf digests share one
+        # geometry across backends); the openers' top levels come over
+        # in one transfer a bucket, deep levels stay on the device for
+        # the walks to fetch
+        tree_groups: dict[int, list] = {}
+        for ent in staged:
+            if ent.need_tree and not ent.solo:
+                tree_groups.setdefault(int(ent.state.leaf.shape[-1]), []).append(ent)
+        lane_trees: dict[int, tuple] = {}
+        n_tree_batched = 0
+        for items in tree_groups.values():
+            if len(items) < self.min_batch:
+                continue  # _ensure_tree builds those solo
+            lanes = self._lane_tier(len(items))
+            leaves = [e.state.leaf for e in items]
+            leaves += [leaves[0]] * (lanes - len(items))
+            stack = _StackedLevels(transition.fleet_tree_from_leaves(transition.stack_pytrees(*leaves)))
+            stack.prefetch(max(e.rep.levels_per_round for e in items))
+            n_tree_batched += len(items)
+            for lane, e in enumerate(items):
+                lane_trees[id(e.rep)] = (stack, lane, e.version)
+
+        # phase 3 — per member, under its lock: adopt the batched tree
+        # (version-guarded), emit every job through the shared
+        # _emit_push_job tail, open the walk rounds
+        for ent in staged:
+            rep = ent.rep
+            with rep._lock:
+                if ent.solo:
+                    rep._push_deltas()
+                    rep._open_walks()
+                    continue
+                tv = lane_trees.get(id(rep))
+                if tv is not None and rep._tree is None and rep._state_version == tv[2]:
+                    rep._tree = _LaneLevels(tv[0], tv[1])
+                for job in ent.jobs:
+                    sl = extracted.get(id(job))
+                    if sl is None:
+                        sl = rep._extract_push_job(job)
+                    rep._emit_push_job(job, sl)
+                rep._open_walks()
+
+        dt = time.perf_counter() - t0
+        solo_members = sum(1 for ent in staged if ent.solo)
+        with self._lock:
+            self._egress_ticks += 1
+            self._egress_members += len(reps)
+            self._egress_time += dt
+            self._egress_dispatches += n_dispatch
+            self._egress_batched_jobs += n_batched_jobs
+            self._egress_solo_jobs += n_solo_jobs
+            self._egress_solo_members += solo_members
+            for k, v in occupancy.items():
+                self._egress_occupancy[k] = self._egress_occupancy.get(k, 0) + v
+            self._egress_tree_batched += n_tree_batched
+        if telemetry.has_handlers(telemetry.FLEET_EGRESS):
+            telemetry.execute(
+                telemetry.FLEET_EGRESS,
+                {
+                    "members": len(reps),
+                    "jobs_batched": n_batched_jobs,
+                    "jobs_solo": n_solo_jobs + solo_members,
+                    "dispatches": n_dispatch,
+                    "duration_s": dt,
+                },
+                {"fleet": id(self)},
+            )
+        return len(reps)
+
+    def _extract_bucket(self, items: list, extracted: dict) -> None:
+        """One batched extraction for a bucket of same-shape push jobs:
+        stack the members' snapshot states and job inputs on a leading
+        replica axis (pow2 lane tier; padding lanes copy member 0 with
+        all ``-1`` rows and gather nothing), run the backend's batched
+        form, fetch the WHOLE stacked slice with one transfer, and hand
+        each job its lane — trimmed back to the member's own solo tier on
+        the hash store — as the host-form slice ``_emit_push_job`` fans
+        out."""
+        model = items[0][0].model
+        n = len(items)
+        lanes = self._lane_tier(n)
+        states = [st for _rep, st, _job in items]
+        states += [states[0]] * (lanes - n)
+        stacked = transition.stack_pytrees(*states)
+        u = items[0][2].rows.shape[0]
+        rows = np.full((lanes, u), -1, np.int64)
+        for k, (_rep, _st, job) in enumerate(items):
+            rows[k] = job.rows
+        put = lambda a: torch.from_numpy(a).to(self.device)
+        if items[0][2].kind == "delta":
+            slots = np.zeros(lanes, np.int64)
+            gids = np.zeros(lanes, np.int64)
+            lo = np.zeros((lanes, u), np.int64)
+            for k, (rep, _st, job) in enumerate(items):
+                slots[k] = rep.self_slot
+                gids[k] = _i64(rep.node_id)
+                lo[k] = job.lo
+            sl, tiers = model.fleet_extract_own_delta(stacked, put(rows), put(slots), put(gids), put(lo))
+        else:
+            sl, tiers = model.fleet_extract_rows(stacked, put(rows))
+        host = _TR_EGRESS_EXTRACT.get(sl)  # one transfer for the whole bucket
+        for k, (_rep, _st, job) in enumerate(items):
+            extracted[id(job)] = _lane_slice(host, k, job.rows, None if tiers is None else tiers[k])
+
+    # ------------------------------------------------------------------
+    # periodic duties + the one-thread event loop
+
+    def run_duties(self, now: float | None = None) -> None:
+        """One pass of every member's periodic duties — the per-replica
+        loop body of ``Replica.start``, hoisted so N members share one
+        thread: flush pending mutations, then one batched sync tick for
+        the members whose interval is due. (Port members have no WAL or
+        checkpoint duty.)"""
+        now = time.monotonic() if now is None else now
+        due: list = []
+        for rep in self.replicas:
+            with rep._lock:
+                if rep._pending:
+                    rep._flush()
+            if now >= getattr(rep, "_fleet_next_sync", 0.0):
+                due.append(rep)
+                rep._fleet_next_sync = now + rep.sync_interval
+        if due:
+            self.sync_tick(due)
+
+    def start(self) -> "Fleet":
+        """Run the fleet's event loop in ONE background thread serving
+        every member: thread count no longer grows with replica count."""
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        min_interval = min(r.sync_interval for r in self.replicas)
+
+        def loop():
+            while not self._stop.is_set():
+                self.tick()
+                self.run_duties()
+                self._wake.wait(timeout=min(min_interval, 0.05))
+                self._wake.clear()
+
+        self._thread = threading.Thread(target=loop, name=f"crdt-fleet-{id(self):x}", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the loop and every member (best-effort final sync, the
+        solo ``Replica.stop`` contract per member). Each member's goodbye
+        sync is drained before the next member stops: the fleet is the
+        loop that serves it."""
+        if self._thread is not None:
+            self._stop.set()
+            self._wake.set()
+            self._thread.join(timeout=5)
+            self._thread = None
+        for rep in self.replicas:
+            rep.stop()
+            self.drain()
+
+    def frontdoor(self, **opts):
+        raise _later("the fleet's serving front door", "serving and observability")
+
+    def obs_varz(self) -> dict:
+        raise _later("the fleet's /varz stanza", "serving and observability")
+
+    def health(self) -> dict:
+        raise _later("the fleet's /healthz readiness", "serving and observability")
+
+    # ------------------------------------------------------------------
+    # observability
+
+    def stats(self) -> dict:
+        """Fleet dispatch observability: occupancy (replicas per batched
+        dispatch), ragged-mask fill ratio, tick throughput, fallbacks by
+        reason, the resident stack's hits and misses, and the egress
+        half's counters. Served under the fleet lock: the loop thread
+        updates every counter it reports."""
+        with self._lock:
+            occ = dict(sorted(self._occupancy_hist.items()))
+            total = sum(occ.values())
+            return {
+                "replicas": len(self.replicas),
+                "ticks": self._ticks,
+                "ticks_per_sec": round(self._ticks / self._tick_time, 3) if self._tick_time else 0.0,
+                "dispatches": self._dispatches,
+                "batched_messages": self._batched_messages,
+                # process-wide per-site device↔host crossings
+                "transfers": transfers.snapshot(),
+                "occupancy_hist": occ,
+                "avg_occupancy": round(sum(k * v for k, v in occ.items()) / total, 3) if total else 0.0,
+                "ragged_fill_ratio": (
+                    round(self._real_rows / self._padded_rows, 4) if self._padded_rows else 0.0
+                ),
+                "fallbacks": dict(self._fallbacks),
+                "stack_cache": {"hits": self._stack_hits, "misses": self._stack_misses},
+                "egress": self._egress_stats_held(),
+            }
+
+    def _egress_stats_held(self) -> dict:
+        """Batched-egress observability (caller holds the fleet lock)."""
+        occ = dict(sorted(self._egress_occupancy.items()))
+        occ_total = sum(occ.values())
+        return {
+            "ticks": self._egress_ticks,
+            "members_synced": self._egress_members,
+            "ticks_per_sec": (
+                round(self._egress_ticks / self._egress_time, 3) if self._egress_time else 0.0
+            ),
+            "dispatches": self._egress_dispatches,
+            "batched_jobs": self._egress_batched_jobs,
+            "solo_jobs": self._egress_solo_jobs,
+            "solo_members": self._egress_solo_members,
+            "bucket_occupancy_hist": occ,
+            "avg_bucket_occupancy": (
+                round(sum(k * v for k, v in occ.items()) / occ_total, 3) if occ_total else 0.0
+            ),
+            "trees_batched": self._egress_tree_batched,
+        }

@@ -25,12 +25,16 @@ carries, line for line the JAX replica's semantics:
   of the drain;
 - neighbour monitoring, host payload gc, ``SYNC_DONE`` /
   ``SYNC_ROUND`` / ``CAPACITY_GROWN`` / ``INGEST_COALESCE`` telemetry,
-  the threaded loop.
+  the threaded loop;
+- the fleet hooks (``fleet_prepare`` / ``fleet_commit`` /
+  ``fleet_handle_group``, the lazily materialised ``state`` of a
+  fleet-held lane, the egress plan/extract/emit split) that
+  :mod:`delta_crdt_ex_tpu_torch.runtime.fleet` drives.
 
-WAL and storage, log shipping, fleets, tree gossip, serving, the
-observability plane, fault injection and the device mesh wait for
-later slices: their options raise ``NotImplementedError`` naming the
-slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host
+WAL and storage, log shipping, tree gossip, serving, the observability
+plane, fault injection and the device mesh wait for later slices: their
+options raise ``NotImplementedError`` naming the slice
+(:data:`LATER_OPTIONS`). Sync slices always travel on the host
 plane (numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the
 wire stays the JAX package's and every one of them may coalesce.
 """
@@ -50,7 +54,7 @@ from delta_crdt_ex_tpu_torch.models.binned import pow2_tier, pow4_tier
 from delta_crdt_ex_tpu_torch.models.binned_map import BinnedAWLWWMap, CtxGapError
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
-from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
 from delta_crdt_ex_tpu_torch.runtime.clock import Clock
 from delta_crdt_ex_tpu_torch.runtime.transport import Down, LocalTransport, default_transport
 from delta_crdt_ex_tpu_torch.utils import transfers
@@ -162,9 +166,64 @@ class _LazyLevels:
         return h
 
 
+class _StackedLevels:
+    """Digest-tree levels for a whole fleet egress bucket, built by ONE
+    batched call (``transition.fleet_tree_from_leaves``): level j is
+    ``[N, 2^j]``. Host copies are per LEVEL and shared by every member
+    lane: the openers' top ``levels_per_round`` levels come over in one
+    transfer, and a deep walk by any member fetches that level for all."""
+
+    __slots__ = ("_dev", "_host")
+
+    def __init__(self, levels: list) -> None:
+        self._dev = levels
+        self._host: list[np.ndarray | None] = [None] * len(levels)
+
+    def __len__(self) -> int:
+        return len(self._dev)
+
+    def prefetch(self, upto: int) -> None:
+        """Fetch levels ``0..upto`` (inclusive, clamped) with one
+        transfer — the openers' whole working set."""
+        upto = min(upto, len(self._dev) - 1)
+        want = [j for j in range(upto + 1) if self._host[j] is None]
+        if not want:
+            return
+        got = _TR_DIGEST_LEVELS.get([self._dev[j] for j in want])
+        for j, arr in zip(want, got):
+            self._host[j] = as_u32(arr)
+
+    def lane_level(self, level: int, lane: int) -> np.ndarray:
+        h = self._host[level]
+        if h is None:
+            h = self._host[level] = as_u32(_TR_DIGEST_LEVELS.get(self._dev[level]))
+        return h[lane]
+
+
+class _LaneLevels:
+    """One member's view of a :class:`_StackedLevels`: indexes and
+    ``len()`` as :class:`_LazyLevels` does, bit-identical to the
+    member's solo tree."""
+
+    __slots__ = ("_stack", "_lane")
+
+    def __init__(self, stack: _StackedLevels, lane: int) -> None:
+        self._stack = stack
+        self._lane = lane
+
+    def __len__(self) -> int:
+        return len(self._stack)
+
+    def __getitem__(self, level: int) -> np.ndarray:
+        return self._stack.lane_level(level, self._lane)
+
+
 class _PushJob:
     """One planned eager-push extraction: the rows / interval bounds to
-    gather and the peers the resulting slice fans out to."""
+    gather and the peers the resulting slice fans out to. Planning,
+    extraction and emission are separate steps so a fleet can run many
+    members' extractions as one batched call between a member's plan
+    and its emit."""
 
     __slots__ = ("kind", "rows", "lo", "pending", "peers", "advance", "new_cursor")
 
@@ -245,6 +304,24 @@ class Replica:
         #: and emits them in order
         self._telemetry_defer: list | None = None
         self._lock = threading.RLock()
+        #: the cell behind the ``state`` property: ``_state`` is the
+        #: replica's own store, or None while its authoritative copy is
+        #: a lane of a fleet's stacked result (``_fleet_src = (stacked,
+        #: lane)``, copied out on first access). ``_state_version`` moves
+        #: on every assignment: a fleet dispatch is optimistic, and a
+        #: version that moved between staging and commit means the batch
+        #: read a stale state and must be replayed solo
+        self._state: Any = None
+        self._fleet_src: "tuple | None" = None
+        self._state_version = 0
+        #: fleet participation (``stats()["fleet"]``): batched dispatches
+        #: this replica rode, messages merged in them, solo fallbacks
+        self._fleet_dispatches = 0
+        self._fleet_messages = 0
+        self._fleet_fallbacks = 0
+        #: set by a Fleet on membership: the fleet owns this replica's
+        #: event loop, so ``start()`` refuses (two drains would race)
+        self._in_fleet = False
         self._pending: list[tuple[str, Any, Any]] = []  # (op, key_term, value)
         #: per-neighbour per-bucket own counter already pushed
         self._push_cursor: dict[Any, np.ndarray] = {}
@@ -292,6 +369,36 @@ class Replica:
         state.ctx_gid[0] = _i64(self.node_id)
         self.state = state
         self.self_slot = 0
+
+    @property
+    def state(self):
+        """The device-resident lattice state. For a fleet member the
+        authoritative copy may be a lane of the fleet's stacked result
+        (:meth:`fleet_commit`); the lane is copied out on first access
+        and kept, so members that only ever merge through batched
+        dispatches never pay a per-replica unstack."""
+        with self._lock:
+            if self._state is None:
+                stacked, lane = self._fleet_src
+                self._state = transition.index_state(stacked, lane)
+                self._fleet_src = None
+            return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        with self._lock:
+            self._state = value
+            self._fleet_src = None
+            self._state_version += 1
+
+    def _geometry(self) -> tuple:
+        """The model's batch-compatibility key, read without copying a
+        fleet-held lane out (the fleet's bucketing stays free of device
+        work)."""
+        if self._state is not None:
+            return self.model.geometry(self._state)
+        stacked, _lane = self._fleet_src
+        return self.model.geometry_stacked(stacked)
 
     # ------------------------------------------------------------------
     # public API (facade parity: delta_crdt.ex:97-137)
@@ -626,6 +733,20 @@ class Replica:
         self.state = self.model.grow_for_apply(self.state)
         self._grown_telemetry(self.state)
 
+    def grow_store_advised(self) -> None:
+        """Fleet post-commit growth advisory (``replica.py:1510``): the
+        batched merge reported this member's fullest probe window near
+        overflow, so grow the store off the batch path. Re-checks under
+        the lock (a concurrent mutate may have grown it already) and
+        commits through the state cell in one critical section."""
+        with self._lock:
+            st = self.state
+            if self.model.store_load_high(st):
+                self._state = self.model.grow_for_apply(st)
+                self._fleet_src = None
+                self._state_version += 1
+                self._grown_telemetry(self._state)
+
     def _grown_telemetry(self, state) -> None:
         if telemetry.has_handlers(telemetry.CAPACITY_GROWN):
             telemetry.execute(
@@ -848,9 +969,15 @@ class Replica:
             self._flush()
             self._monitor_neighbours()
             self._push_deltas()
-            for n in list(self._monitors):
-                if n != self.addr:
-                    self._open_walk(n)
+            self._open_walks()
+
+    def _open_walks(self) -> None:
+        """Open digest-walk rounds toward every monitored neighbour — the
+        tail of :meth:`sync_to_all`, shared with the fleet's batched
+        sync tick. Caller holds the lock."""
+        for n in list(self._monitors):
+            if n != self.addr:
+                self._open_walk(n)
 
     def _open_walk(self, n) -> bool:
         """Open one digest-walk round toward ``n`` (≤ 1 in flight)."""
@@ -874,7 +1001,7 @@ class Replica:
     def _push_deltas(self) -> None:
         """Eagerly push own fresh dots to each neighbour as
         delta-interval slices (Almeida et al.'s delta mode), plus
-        full-row slices of kill-touched rows."""
+        full-row slices of kill-touched rows: plan, extract, emit."""
         for job in self._eager_jobs():
             self._emit_push_job(job, self._extract_push_job(job))
 
@@ -941,6 +1068,10 @@ class Replica:
         return self.model.extract_rows(self.state, self._i64_tensor(job.rows))
 
     def _emit_push_job(self, job: _PushJob, sl) -> None:
+        """Fan one extracted push slice out to the job's peers and
+        advance their cursors on successful sends — the emission tail of
+        the solo and the fleet egress paths (caller holds the lock).
+        ``sl`` is on the device (solo) or already on the host (fleet)."""
         arrays, payloads = self._slice_wire(sl, job.rows)
         buckets = job.pending.astype(np.int64)
         for p in job.peers:
@@ -986,8 +1117,8 @@ class Replica:
                 )
             elif isinstance(msg, sync_proto.FleetFrameMsg):
                 raise NotImplementedError(
-                    "fleet frames are not ported to PyTorch yet; they come with "
-                    "the fleets slice"
+                    "fleet frames over TCP are not ported to PyTorch yet; they come "
+                    "with the WAL, storage and log shipping slice (its TcpTransport)"
                 )
             else:
                 raise TypeError(f"unknown message: {msg!r}")
@@ -1380,10 +1511,79 @@ class Replica:
                 {"name": self.name, "plane": "host"},
             )
 
+    # ------------------------------------------------------------------
+    # batched replica fleets (``replica.py:3461-3560``): the replica's
+    # side of the contract :mod:`delta_crdt_ex_tpu_torch.runtime.fleet`
+    # drives. Staging is optimistic (no lock held across the batched
+    # dispatch) and the commit replays through the same bookkeeping tail
+    # as the solo grouped path, so what peers observe (state bits, seq,
+    # telemetry) is what handling the messages without a fleet gives.
+
+    def fleet_prepare(self, msgs: list) -> "tuple | None":
+        """Stage one coalesce group for a fleet batched dispatch: flush
+        pending local ops, register the group's payloads (idempotent —
+        the solo fallback re-registers harmlessly) and combine the group
+        into one host-form slice. Returns ``(slice, offsets,
+        state_version, geometry)``, or ``None`` for the per-replica
+        fallback: a diff subscriber (its before/after compare is per
+        slice) or a body that is not host numpy."""
+        if self.on_diffs is not None:
+            return None
+        for m in msgs:
+            if not isinstance(m.arrays["key"], np.ndarray):
+                return None
+        with self._lock:
+            self._flush()
+            for m in msgs:
+                self._register_slice_payloads(m.payloads)
+            sl, offsets = self.model.combine_entry_arrays([m.arrays for m in msgs], None)
+            return sl, offsets, self._state_version, self._geometry()
+
+    def fleet_handle_group(self, msgs: list) -> None:
+        """Per-replica fallback for one fleet group: the solo grouped
+        merge under this replica's own lock — growth, the gap partition
+        and repair, and singleton handling behave as without a fleet."""
+        with self._lock:
+            self._fleet_fallbacks += 1
+            self._handle_entries_group(msgs)
+
+    def fleet_commit(self, msgs: list, offsets, stacked, lane: int, counts_fn, n_killed: int,
+                     dt: float, version: int) -> "int | None":
+        """Adopt lane ``lane`` of a fleet batched dispatch's stacked
+        result and fan out the per-message bookkeeping (seq, telemetry,
+        gc pressure). Returns the NEW state version (the one at which
+        ``stacked[lane]`` is this replica's state — the fleet's resident
+        stack must record exactly this one), or ``None``, leaving the
+        replica untouched, when its state moved since
+        :meth:`fleet_prepare` staged it: the batch read a stale state
+        and the fleet replays the group solo."""
+        with self._lock:
+            if self._state_version != version:
+                return None
+            self._state = None
+            self._fleet_src = (stacked, lane)
+            self._state_version += 1
+            committed_version = self._state_version
+            self._tree = None
+            self._read_cache = None
+            self._read_cache_kh = None
+            # the batched dispatch swaps the WHOLE state cell: the next
+            # egress tick plans from the adopted lane, never a stale own
+            # column
+            self._own_ctr_cache = None
+            self._fleet_dispatches += 1
+            self._fleet_messages += len(msgs)
+            self._commit_entries_group(msgs, offsets, counts_fn, dt)
+            self._gc_pressure += sum(len(m.payloads) for m in msgs) + n_killed
+            self._maybe_gc()
+            return committed_version
+
     def stats(self) -> dict:
         """Observability snapshot. ``ingress`` shows the coalescing of
         ``process_pending``: messages and grouped dispatches, the depth
-        histogram (group size → dispatches) and the gap fallbacks."""
+        histogram (group size → dispatches) and the gap fallbacks;
+        ``fleet`` the batched dispatches this replica rode as a fleet
+        member."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
@@ -1404,6 +1604,11 @@ class Replica:
                     "gap_fallbacks": self._ingress_gap_fallbacks,
                     "gap_partitions": self._ingress_gap_partitions,
                 },
+                "fleet": {
+                    "dispatches": self._fleet_dispatches,
+                    "batched_messages": self._fleet_messages,
+                    "fallbacks": self._fleet_fallbacks,
+                },
                 "device": str(self.device),
                 # process-wide launch count of the probe-window kernel
                 "kernel_launches": {probe_lookup_kernel.name: probe_lookup_kernel.launches},
@@ -1414,6 +1619,11 @@ class Replica:
     def start(self) -> "Replica":
         """Run the periodic anti-entropy loop in a background thread
         (first sync fires immediately)."""
+        if self._in_fleet:
+            raise ValueError(
+                f"replica {self.name!r} is a fleet member; the fleet owns "
+                "its event loop (two drains of one mailbox would race)"
+            )
         if self._thread is not None:
             return self
         self._stop.clear()

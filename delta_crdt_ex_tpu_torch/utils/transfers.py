@@ -37,16 +37,10 @@ def _map(fn, value):
     return value
 
 
-def _nbytes(value) -> int:
-    total = 0
-
-    def count(t):
-        nonlocal total
-        total += t.numel() * t.element_size()
-        return t
-
-    _map(count, value)
-    return total
+def _tensors(value) -> list:
+    found: list = []
+    _map(lambda t: found.append(t) or t, value)
+    return found
 
 
 class TransferSite:
@@ -68,9 +62,13 @@ class TransferSite:
 
     def get(self, value):
         """Audited device→host copy: one counted crossing for the whole
-        tree; every tensor leaf becomes a numpy array of its own dtype
-        (host leaves pass through)."""
-        self.note(_nbytes(value))
+        tree; every tensor leaf becomes a numpy array of its own dtype.
+        Host leaves pass through, and a tree of host leaves only (a
+        slice the fleet already fetched) crosses nothing and counts
+        nothing."""
+        tensors = _tensors(value)
+        if tensors:
+            self.note(sum(t.numel() * t.element_size() for t in tensors))
         return _map(lambda t: t.detach().cpu().numpy(), value)
 
 

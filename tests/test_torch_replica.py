@@ -31,7 +31,7 @@ from delta_crdt_ex_tpu.runtime import telemetry as j_telemetry
 from delta_crdt_ex_tpu.runtime.clock import LogicalClock as JClock
 from delta_crdt_ex_tpu.runtime.transport import LocalTransport as JTransport
 from delta_crdt_ex_tpu_torch.models.hash_store import to_numpy
-from delta_crdt_ex_tpu_torch.runtime import sync as t_sync, telemetry as t_telemetry
+from delta_crdt_ex_tpu_torch.runtime import sync as t_sync, telemetry as t_telemetry, transition
 from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock as TClock
 from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport as TTransport
 
@@ -144,6 +144,7 @@ def test_port_imports_no_jax():
         "import delta_crdt_ex_tpu_torch.parallel.batched_sync, delta_crdt_ex_tpu_torch.models.binned_map\n"
         "import delta_crdt_ex_tpu_torch.models.hash_store, delta_crdt_ex_tpu_torch.ops.binned\n"
         "import delta_crdt_ex_tpu_torch.runtime.replica, delta_crdt_ex_tpu_torch.runtime.telemetry\n"
+        "import delta_crdt_ex_tpu_torch.runtime.transition, delta_crdt_ex_tpu_torch.runtime.fleet\n"
         "from delta_crdt_ex_tpu_torch import AWSet, BinnedAWLWWMap, HashAWSet, HashAWLWWMap\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
@@ -170,6 +171,8 @@ def test_start_link_defaults_to_cuda_and_raises_without_it(monkeypatch):
     for store in ("hash", None):  # None: the binned store, the default
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdc.start_link(tdc.AWLWWMap, store=store, threaded=False, transport=TTransport())
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tdc.start_fleet(2, store=store, threaded=False, transport=TTransport())
 
 
 def test_default_start_link_is_the_binned_store_with_coalescing():
@@ -220,3 +223,19 @@ def test_stats_on_both_stores(store):
 def test_unported_options_raise(opts, err):
     with pytest.raises(err):
         tdc.start_link(tdc.AWLWWMap, threaded=False, transport=TTransport(), device="cpu", **opts)
+
+
+@pytest.mark.parametrize(
+    "call, match",
+    [
+        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu", mesh=True), "multi-device mesh"),
+        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu", obs=True), "serving and observability"),
+        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu").frontdoor(), "serving and observability"),
+        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu").health(), "serving and observability"),
+        (lambda t: transition.fleet_hash_row_apply(None, None, None, None, None, None, None), "hash-store fleet mutation"),
+        (lambda t: tdc.HashAWLWWMap.mesh_fleet_merge_rows(None, None, None), "multi-device mesh"),
+    ],
+)
+def test_unported_fleet_options_raise(call, match):
+    with pytest.raises(NotImplementedError, match=match):
+        call(TTransport())
