@@ -2,9 +2,10 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-7
-    python3 chip_smoke.py --keys 131072   # phases 3 and 3b at a cut key count
+    python3 chip_smoke.py                 # the full run: phases 1-8
+    python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a and 8b at a cut key count
     python3 chip_smoke.py --only 7        # the build and phase 7 alone (no result lines)
+    python3 chip_smoke.py --only 8        # the build and phase 8 alone (no result lines)
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -24,13 +25,17 @@ Phases (each raises on failure; any failure exits nonzero):
    top-bit leaves, every root bit-equal, swapped siblings and swapped
    leaves either side of a cluster boundary changing the root; then
    each kernel's duration by the profiler, its plain version's time and
-   its memory bound at the main paths' shapes (``PROBE_TIMED``,
-   ``ROOTS_TIMED``), and its time by CUDA events at the first of them,
-   the headline of the ``kernels`` line;
-3. the slice at full size: two threaded replicas on ``cuda``
+   its memory bound at its headline shapes (``PROBE_TIMED``) or the
+   main paths' shapes (``ROOTS_TIMED``), and its time by CUDA events at
+   the first of them, the headline of the ``kernels`` line (the probe is
+   timed again after phase 8 at every (H, W, Q) that phases 3 and 8b
+   launched it at);
+3. the slice: two threaded replicas on ``cuda``
    (``store="hash"``, sync_interval 20 ms, max_sync_size 500, an
-   ``on_diffs`` subscriber each) — ``mutate_batch`` of ``--keys`` keys
-   into replica 1 until replica 2 holds them all, 10 single-op
+   ``on_diffs`` subscriber each) — ``mutate_batch`` of an eighth of
+   ``--keys`` keys (2^17 by default; cut from 2^20 so that the whole
+   run, phase 8 included, stays inside its time limit) into replica 1
+   until replica 2 holds them all, 10 single-op
    mutations timed to their arrival, 1% of the keys removed,
    ``read_keys`` of 4096 keys on both — then equal canonical bytes,
    every state tensor on the card, and the kernel launched on this path;
@@ -79,7 +84,8 @@ Phases (each raises on failure; any failure exits nonzero):
    round, 1 warm-up + 5 timed rounds): the ingress leg (n senders each
    pushing to one fleet member and its solo twin; ``fleet.drain()``
    against the twins' ``process_pending()``) on the binned store at
-   N = 256 and 1024 and on the hash store at N = 64, one more drain
+   N = 256 and 1024 (512 only if the run would otherwise pass
+   ``RUN_GUARD_S``) and on the hash store at N = 64, one more drain
    traced; the egress leg (``fleet.sync_tick()`` against the twins'
    ``sync_to_all()``, sink neighbours) at N = 256 binned and N = 64
    hash. ``[fleet]`` lines give merges/s or member syncs/s, round times,
@@ -87,9 +93,33 @@ Phases (each raises on failure; any failure exits nonzero):
    ``[fleet-mem]`` lines the device memory after each round. It raises
    on any fleet/solo difference (state columns, canonical bytes, seqs,
    outbound messages), on state off the card, on memory that grows
-   round over round by more than one batch, and on a kernel launch.
+   round over round by more than one batch, and on a kernel launch;
+8. durability, each leg's WAL directories under ``build/wal/`` with
+   the JAX package's WAL defaults (``fsync_mode="batch"``, 4 MiB
+   segments): 8a two threaded default-store replicas with phase 3b's
+   geometry, 2^20 keys loaded into replica 1 (1024 ``batch`` records, a
+   compaction snapshot at the last), then 2^19 keys overwritten (512
+   more records), replica 2 logging its merged slices as ``entries``
+   records; both crash right after the overwrites (replica 2 still
+   catching up on them) and restart from disk (snapshot + replay), and must come back with their
+   pre-crash canonical bytes, reads, node ids and seqs, on the card,
+   then catch up to equal canonical bytes and carry 10 new single-op
+   writes to the peer. ``[durability]`` lines give the load time with
+   the WAL, the append ms (median, p99), WAL and snapshot bytes, the
+   compaction ms, the recovery seconds (the restart's wall time, and
+   the ``WAL_RECOVER`` event's span from reading the log to the end of
+   the replay), the records replayed, the catch-up seconds, the post-recovery
+   propagation ms and the peak memory. 8b the same on
+   the hash store at 2^17 keys with diff subscribers (a snapshot every
+   128 records), the probe kernel's launches before the crash, during
+   the recovery and after it (``read_keys`` on the recovered tables);
+   8c phase 7a's ingress rounds into a 256-member binned fleet without
+   and with a WAL per member, then every member crashed and recovered
+   solo with equal canonical bytes. 8d runs in phase 4: a seeded
+   ``SimNetwork`` (drops, duplicates, reordering) on three replicas per
+   store, identical on cuda and cpu.
 
-Metrics print on their own lines, then each kernel's launches ×
+Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
 kernel table as JSON, the last line is the device record. The script
 imports nothing of JAX or of the JAX package, and exits nonzero without
@@ -344,15 +374,14 @@ def phase_roots_vs_plain() -> int:
     return max_err
 
 
-#: probe timing shapes (H, W, Q, share of queries that hit); the first is
-#: the headline of the ``kernels`` line, its shape since the kernel was
+#: probe headline shapes (H, W, Q, share of queries that hit): the
+#: headline of the ``kernels`` line, its shape since the kernel was
 #: ported: 2^20 queries on a 2^21-lane table; then the same with every
-#: query missing (so only the windows are read), then each wire tier the
-#: replica path launches on its 2^22-lane tables (8 = one op, 512 and
-#: 2048 = a mutation batch, 8192 = a 4096-key read_keys)
-PROBE_TIMED = [(1 << 21, 32, 1 << 20, 0.75), (1 << 21, 32, 1 << 20, 0.0)] + [
-    (1 << 22, 32, q, 0.75) for q in (8, 512, 2048, 8192)
-]
+#: query missing (so only the windows are read). The shapes the replica
+#: paths launch at are timed after them (:func:`path_probe_rows`)
+PROBE_TIMED = [(1 << 21, 32, 1 << 20, 0.75), (1 << 21, 32, 1 << 20, 0.0)]
+#: the hit share of the path shapes' timing tables (as the headline's)
+PATH_HITS = 0.75
 #: roots timing shapes (N, L); the first is the headline, its shape since
 #: the kernel was ported: the fan-in's 64 lanes; then gossip's 8 and a
 #: wide batch
@@ -386,12 +415,14 @@ def kernel_us(fn, flush, name: str, reps: int = 10) -> float:
     raise AssertionError(f"the profiler recorded no {name} kernel in 3 windows")
 
 
-def kernel_timings(device_name: str) -> dict:
+def kernel_timings(device_name: str, probe_shapes=PROBE_TIMED, roots_shapes=ROOTS_TIMED,
+                   head: bool = True) -> dict:
     """Each kernel's duration by the profiler at every shape of
-    :data:`PROBE_TIMED` and :data:`ROOTS_TIMED` (L2 flushed between
-    calls), beside its plain version's time and its byte bound; at the
-    first (headline) shape also its time by CUDA events (:func:`time_ms`),
-    the method of the ``ms`` of earlier ``kernels`` lines."""
+    ``probe_shapes`` and ``roots_shapes`` (L2 flushed between calls),
+    beside its plain version's time and its byte bound; with ``head``, at
+    each kernel's first (headline) shape also its time by CUDA events
+    (:func:`time_ms`), the method of the ``ms`` of earlier ``kernels``
+    lines. Probe tables hold H / 8 seeded keys."""
     import torch
 
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel, probe_lookup_ref
@@ -415,29 +446,49 @@ def kernel_timings(device_name: str) -> dict:
 
     rows: dict = {"probe": [], "roots": []}
     tables: dict = {}
-    for i, (H, W, Q, hit) in enumerate(PROBE_TIMED):
+    for i, (H, W, Q, hit) in enumerate(probe_shapes):
         if (H, W) not in tables:
             tables[(H, W)] = seeded_table(H, W, H // 8, seed=H * 7 + W, device=dev)
         st, keys = tables[(H, W)]
         qk = queries(keys, Q, seed=99, hit=hit)
         row = {"shape": {"H": H, "W": W, "Q": Q, "hits": hit}}
         row.update(timed(lambda: probe_lookup_kernel(qk, st), lambda: probe_lookup_ref(qk, st),
-                         "probe_lookup", i == 0, 5 if Q > 8192 else 20))
+                         "probe_lookup", head and i == 0, 5 if Q > 8192 else 20))
         nbytes = probe_bound_bytes(qk, st)
         row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"[kernel-time] probe_lookup H={H} W={W} Q={Q} hits {hit} (L2 flushed between calls, bound "
             f"{nbytes} B at 3.35 TB/s): {show(row)}")
         rows["probe"].append(row)
     del tables
-    for i, (n, L) in enumerate(ROOTS_TIMED):
+    for i, (n, L) in enumerate(roots_shapes):
         leaf = random_leaves(n, L, seed=7 + n)
         row = {"shape": {"N": n, "L": L}}
         row.update(timed(lambda: batched_roots_kernel(leaf), lambda: batched_roots_ref(leaf),
-                         "batched_roots", i == 0, 20))
+                         "batched_roots", head and i == 0, 20))
         row["bound_ms"] = roots_bound_ms(n, L)
         log(f"[kernel-time] batched_roots N={n} L={L} (L2 flushed between calls, bound "
             f"{n * L * 8 + n * 8} B at 3.35 TB/s): {show(row)}")
         rows["roots"].append(row)
+    return rows
+
+
+def probe_shape_launches() -> dict:
+    """The probe wrapper's launches since its last reset by the shape it
+    launched at, keyed ``"HxWxQ"``."""
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+
+    return {f"{H}x{W}x{Q}": n for (H, W, Q), n in sorted(probe_lookup_kernel.launches_by_shape.items())}
+
+
+def path_probe_rows(device_name: str, by_shape: dict, skip: set) -> list:
+    """The probe kernel timed as :func:`kernel_timings` times it, at
+    every (H, W, Q) in ``by_shape`` (the replica paths' launches by
+    shape) but those in ``skip``, each row with its launches."""
+    shapes = sorted(tuple(int(x) for x in k.split("x")) for k in by_shape if k not in skip)
+    rows = kernel_timings(device_name, [(H, W, Q, PATH_HITS) for H, W, Q in shapes], [], head=False)["probe"]
+    for row in rows:
+        sh = row["shape"]
+        row["launches"] = by_shape[f"{sh['H']}x{sh['W']}x{sh['Q']}"]
     return rows
 
 
@@ -618,13 +669,13 @@ def phase_slice(n_keys: int, device: str = "cuda") -> dict:
                     raise AssertionError(f"{r.name}: state column {name} is not on {device}")
         metrics["table_size"] = r1.state.table_size
         metrics["launches"] = probe_lookup_kernel.launches
-        metrics["launches_by_q"] = {str(q): n for q, n in sorted(probe_lookup_kernel.launches_by_shape.items())}
+        metrics["launches_by_shape"] = probe_shape_launches()
         if metrics["launches"] <= 0:
             raise AssertionError("the probe kernel was not launched on the main path")
         metrics["canonical_bytes"] = len(c1)
         log(f"[slice] canonical bytes equal ({len(c1)} B); table {r1.state.table_size} lanes; "
-            f"probe kernel launches on the main path: {metrics['launches']}, by Q "
-            f"{metrics['launches_by_q']}")
+            f"probe kernel launches on the main path: {metrics['launches']}, by HxWxQ "
+            f"{metrics['launches_by_shape']}")
         # launches below compare the kernel with its plain version and
         # are not the main path's
         metrics["table_max_abs_err"] = check_main_tables(reps, n_keys, removed)
@@ -664,6 +715,34 @@ class SyncDoneCount:
             if time.perf_counter() > deadline:
                 raise TimeoutError(f"timed out waiting for {what} ({self.total} of {total})")
             time.sleep(0.002)
+
+
+def mailbox_depth(transport, addr) -> int:
+    """Messages queued for ``addr`` on a ``LocalTransport``."""
+    with transport._lock:
+        mb = transport._mailboxes.get(addr)
+    return mb.qsize() if mb is not None else 0
+
+
+def timed_propagations(r1, r2, transport, arrivals, deadline: float, key) -> dict:
+    """10 single-op writes on ``r1``, each timed to its arrival at ``r2``
+    (``SYNC_DONE``), with ``r2``'s mailbox depth before each write and
+    the messages its ingress handled until the arrival: a backlog of
+    earlier slices queued ahead of the write shows there."""
+    import delta_crdt_ex_tpu_torch as dc
+
+    lat, queued, handled = [], [], []
+    for i in range(10):
+        queued.append(mailbox_depth(transport, r2.addr))
+        # stats() may wait for r2's lock while a merge finishes: read it
+        # before the arrival base, so no merge lands between the two
+        h0 = r2.stats()["ingress"]["messages"]
+        base = arrivals.total
+        t1 = time.perf_counter()
+        dc.mutate(r1, "add", [key(i), i])
+        lat.append(arrivals.wait(base + 1, deadline, f"single-op write {i}") - t1)
+        handled.append(r2.stats()["ingress"]["messages"] - h0)
+    return {"propagation_ms": [x * 1e3 for x in lat], "queued_before": queued, "handled_during": handled}
 
 
 def batch_breakdown(r, n_ops: int = 1024) -> dict:
@@ -743,15 +822,10 @@ def phase_binned(n_keys: int, device_name: str, device: str = "cuda") -> dict:
         log(f"[binned] {n_keys} keys (L={r1.num_buckets} B={r1.state.bin_capacity}): mutate_batch "
             f"{m['load_s']:.3f} s, on replica 2 after {m['converge_s']:.3f} s on {device_name}")
 
-        lat = []
-        for i in range(10):
-            base = arrivals.total
-            t1 = time.perf_counter()
-            dc.mutate(r1, "add", [f"prop{i}", i])
-            lat.append(arrivals.wait(base + 1, deadline, f"prop{i}") - t1)
-        m["propagation_ms"] = [x * 1e3 for x in lat]
-        log(f"[binned] 10 single-op propagations (ms): {[round(x * 1e3, 3) for x in lat]} median "
-            f"{float(np.median(lat)) * 1e3:.3f} on {device_name}")
+        m.update(timed_propagations(r1, r2, t, arrivals, deadline, lambda i: f"prop{i}"))
+        log(f"[binned] 10 single-op propagations (ms): {[round(x, 3) for x in m['propagation_ms']]} median "
+            f"{float(np.median(m['propagation_ms'])):.3f}; replica 2's mailbox before each {m['queued_before']}, "
+            f"messages it handled until each arrived {m['handled_during']} on {device_name}")
 
         removed = list(range(0, n_keys, 100))
         base = arrivals.total
@@ -940,6 +1014,49 @@ def coalesced_script(device: str) -> bytes:
     return recv.canonical_state_bytes() + repr((ing, done)).encode()
 
 
+def simnet_script(device: str, store=None) -> bytes:
+    """Phase 8d (run in phase 4): three replicas in one seeded
+    ``SimNetwork`` that drops 20% of the messages, duplicates 20% and
+    reorders every step; adds, removes and a clear on all three, then
+    loss-free quiesce rounds. Returns every replica's canonical bytes,
+    read and seq, which must agree across the three."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+
+    net = dc.SimNetwork(seed=1234, drop_rate=0.2, dup_rate=0.2)
+    clock = LogicalClock()
+    reps = [
+        dc.start_link(dc.AWLWWMap, store=store, threaded=False, transport=net, clock=clock, name=f"sn{i}",
+                      node_id=0xF000000000000021 + i, capacity=512, tree_depth=6, max_sync_size=6,
+                      sync_timeout=0.0, device=device)
+        for i in range(3)
+    ]
+    try:
+        for r in reps:
+            r.set_neighbours(reps)
+        net.step()
+        for i in range(30):
+            reps[i % 3].mutate_batch("add", [[f"k{(7 * i + j) % 50}", 10 * i + j] for j in range(4)])
+            if i % 7 == 3:
+                reps[(i + 1) % 3].mutate("remove", [f"k{i % 50}"])
+            if i == 20:
+                reps[2].mutate("clear", [])
+            net.run(reps, rounds=1)
+        net.run(reps, rounds=40)
+        net.drop_rate = net.dup_rate = 0.0
+        net.run(reps, rounds=10)
+        while net.pending:
+            net.step()
+        canon = [r.canonical_state_bytes() for r in reps]
+        reads = [r.read() for r in reps]
+        if len(set(canon)) != 1 or reads[0] != reads[1] or reads[1] != reads[2]:
+            raise AssertionError(f"{device}: the SimNetwork cluster (store={store}) did not converge")
+        return b"".join(canon) + repr((sorted(reads[0].items()), [r._seq for r in reps])).encode()
+    finally:
+        for r in reps:
+            r.crash()
+
+
 def phase_cuda_vs_cpu() -> None:
     for model, store in (("AWLWWMap", "hash"), ("AWLWWMap", None), ("AWSet", None)):
         a = deterministic_script("cuda", model, store)
@@ -959,6 +1076,13 @@ def phase_cuda_vs_cpu() -> None:
             raise AssertionError(f"cuda and cpu runs of the fleet script (store={store}) differ")
         log(f"[det] a 4-member fleet, store={store or 'default'}, a gap mid-group: cuda and cpu canonical "
             f"state + fleet counters identical ({len(a)} B)")
+    for store in (None, "hash"):
+        a, b = simnet_script("cuda", store), simnet_script("cpu", store)
+        if a != b:
+            raise AssertionError(f"cuda and cpu runs of the SimNetwork script (store={store}) differ")
+        log(f"[det] 8d: three replicas in a seeded SimNetwork (20% drops, 20% duplicates, reordered), "
+            f"store={store or 'default'}: converged, cuda and cpu canonical state + reads + seqs identical "
+            f"({len(a)} B)")
 
     from delta_crdt_ex_tpu_torch.models.binned import to_numpy
 
@@ -1578,11 +1702,12 @@ FLEET_LEGS = [("ingress", 256, None), ("ingress", 1024, None), ("egress", 256, N
               ("ingress", 64, "hash"), ("egress", 64, "hash")]
 
 
-#: the whole run's time target, seconds (a run must end within 1200)
-RUN_TARGET_S = 900.0
+#: the whole run's guard, seconds: phase 7a's N = 1024 leg runs at 512
+#: only if the run would otherwise pass it (a run must end within 1200 s)
+RUN_GUARD_S = 1000.0
 
 
-def phase_fleet(device_name: str, t_start: float, legs=FLEET_LEGS) -> dict:
+def phase_fleet(device_name: str, t_start: float, legs=FLEET_LEGS, reserve_s: float = 0.0) -> dict:
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
 
@@ -1592,12 +1717,13 @@ def phase_fleet(device_name: str, t_start: float, legs=FLEET_LEGS) -> dict:
     per_member_s = 0.0
     for k, (leg, n, store) in enumerate(legs):
         if leg == "ingress" and per_member_s and n > 512:
-            # the leg's time grows with N: if the rest of the run would
-            # pass the target, this leg runs at 512 members
-            rest = sum(m for lg, m, _ in legs[k:]) * per_member_s
-            if time.perf_counter() - t_start + rest > RUN_TARGET_S:
+            # the leg's time grows with N: if the rest of the run (and
+            # ``reserve_s`` for the phases after this one) would pass the
+            # guard, this leg runs at 512 members
+            rest = sum(m for lg, m, _ in legs[k:]) * per_member_s + reserve_s
+            if time.perf_counter() - t_start + rest > RUN_GUARD_S:
                 log(f"[cut] phase 7a ingress N={n} -> 512: {time.perf_counter() - t_start:.3f} s so far, "
-                    f"about {rest:.3f} s to go at N={n}")
+                    f"about {rest:.3f} s to go at N={n} (phase 8 reserved {reserve_s:.0f} s)")
                 n = 512
         t0 = time.perf_counter()
         fn = fleet_ingress if leg == "ingress" else fleet_egress
@@ -1673,9 +1799,366 @@ def fleet_det_script(device: str, store=None) -> bytes:
     return b"".join(r.canonical_state_bytes() for r in members) + repr(counters).encode()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: durability (the write-ahead log, compaction, crash recovery)
+
+#: where phase 8 keeps its WAL directories: inside the checkout, under
+#: the ignored ``build/``, removed when the phase ends
+WAL_ROOT = Path(__file__).resolve().parent / "build" / "wal"
+#: phase 8's WAL settings: the JAX package's defaults
+WAL_SEGMENT_BYTES = 4 << 20
+WAL_FSYNC_MODE = "batch"
+#: 8a/8b: the overwrite pass writes this share of the loaded keys again
+OVERWRITE_SHARE = 2
+
+
+class WalEvents:
+    """``WAL_APPEND`` / ``WAL_COMPACT`` / ``WAL_RECOVER`` telemetry by
+    replica name: each event's measurements, in order."""
+
+    def __init__(self) -> None:
+        from delta_crdt_ex_tpu_torch.runtime import telemetry
+
+        self.telemetry = telemetry
+        self.lock = threading.Lock()
+        self.events: dict = {}
+        self.handlers = []
+        for ev in (telemetry.WAL_APPEND, telemetry.WAL_COMPACT, telemetry.WAL_RECOVER):
+            h = lambda _e, meas, meta, _k=ev[-1]: self._note(_k, meta["name"], meas)
+            telemetry.attach(ev, h)
+            self.handlers.append((ev, h))
+
+    def _note(self, kind: str, name, meas: dict) -> None:
+        with self.lock:
+            self.events.setdefault((kind, name), []).append(dict(meas))
+
+    def get(self, kind: str, name) -> list:
+        with self.lock:
+            return list(self.events.get((kind, name), []))
+
+    def close(self) -> None:
+        for ev, h in self.handlers:
+            self.telemetry.detach(ev, h)
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def durability_leg(tag: str, store, n_keys: int, device_name: str, device: str = "cuda",
+                   compact_every: int = 1024, subscribers: bool = False) -> dict:
+    """Two threaded replicas with phase 3b's geometry (sync_interval 20
+    ms, max_sync_size 500), each with its own ``wal_dir`` and the JAX
+    package's WAL defaults: ``n_keys`` keys loaded into replica 1 in
+    1024-op batches (one ``batch`` record each; a compaction snapshot at
+    every ``compact_every``-th record), replica 2 logging what
+    anti-entropy brings it as ``entries`` records; then half the keys
+    overwritten, so recovery is a snapshot plus a replay. Both replicas
+    crash right after the overwrites (replica 2 holding the load, still
+    catching up on them) and restart from
+    disk: each must come back with its pre-crash canonical bytes, read,
+    node id and seq, on the card; then the pair must catch up to equal
+    canonical bytes (``catch_up_s``, replica 1 re-pushing every row: push
+    cursors are soft state) and new writes must reach the peer (counter
+    continuity)."""
+    import shutil
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime import telemetry
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root = WAL_ROOT / tag
+    shutil.rmtree(root, ignore_errors=True)
+    leg = f"{tag} ({store or 'binned'}, {n_keys} keys)"
+    ev = WalEvents()
+    arrivals = SyncDoneCount(f"{tag}1")
+    telemetry.attach(telemetry.SYNC_DONE, arrivals)
+    logs = (DiffLog(), DiffLog()) if subscribers else (None, None)
+    opts = lambda i: dict(
+        name=f"{tag}{i}", store=store, sync_interval=0.02, max_sync_size=500, capacity=2 * n_keys,
+        device=device, wal_dir=str(root / f"r{i}"), fsync_mode=WAL_FSYNC_MODE,
+        segment_bytes=WAL_SEGMENT_BYTES, compact_every=compact_every, on_diffs=logs[i],
+    )
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = LocalTransport()
+    reps = [dc.start_link(dc.AWLWWMap, transport=t, **opts(i)) for i in range(2)]
+    reborn: list = []
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    m: dict = {"keys": n_keys, "store": store or "binned", "compact_every": compact_every,
+               "fsync_mode": WAL_FSYNC_MODE, "segment_bytes": WAL_SEGMENT_BYTES}
+
+    def settle(pair, what: str) -> bytes:
+        while True:
+            c = [r.canonical_state_bytes() for r in pair]
+            if c[0] == c[1]:
+                return c[0]
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{leg}: {what}: replicas did not converge to equal canonical bytes")
+            time.sleep(0.1)
+
+    def launches() -> dict:
+        return {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                batched_roots_kernel.name: batched_roots_kernel.launches,
+                "probe_by_shape": probe_shape_launches()}
+
+    try:
+        r1, r2 = reps
+        dc.set_neighbours(r1, [r2])
+        dc.set_neighbours(r2, [r1])
+        probe_lookup_kernel.reset()  # this path's run starts here
+        batched_roots_kernel.reset()
+        t0 = time.perf_counter()
+        dc.mutate_batch(r1, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=SLICE_BUDGET_S)
+        m["load_wal_s"] = time.perf_counter() - t0
+        # replica 1's loop syncs only between mutate_batch calls (the call
+        # holds its lock): wait until replica 2 has logged the load
+        m["converge_s"] = arrivals.wait(n_keys, deadline, f"{n_keys} keys on replica 2") - t0
+        n_over = n_keys // OVERWRITE_SHARE
+        t0 = time.perf_counter()
+        dc.mutate_batch(r1, "add", [[f"key{i}", n_keys + i] for i in range(n_over)], timeout=SLICE_BUDGET_S)
+        m["overwrite_s"] = time.perf_counter() - t0
+        log(f"[durability] {leg}: load {m['load_wal_s']:.3f} s with the WAL (on replica 2 after "
+            f"{m['converge_s']:.3f} s); {n_over} keys overwritten in {m['overwrite_s']:.3f} s on {device_name}")
+        # crash first: the loops stop, and each replica's state is what
+        # its log holds (every commit fsynced), so the crashed objects
+        # are the pre-crash images
+        for r in reps:
+            r.crash()
+        sync()
+        pre = [(r.canonical_state_bytes(), r.read(), r.node_id, r._seq) for r in reps]
+        want = {f"key{i}": (n_keys + i if i < n_over else i) for i in range(n_keys)}
+        if pre[0][1] != want:
+            raise AssertionError(f"{leg}: replica 1's pre-crash read differs from the written map")
+        if len(pre[1][1]) != n_keys or pre[1][3] <= 0:
+            raise AssertionError(f"{leg}: replica 2 had not logged the load before the crash")
+        m["launches_before_crash"] = launches()
+        per = {}
+        for i, r in enumerate(reps):
+            app = ev.get("append", r.name)
+            snaps = root / f"r{i}" / "snapshots"
+            dur = np.array([a["duration_s"] for a in app]) * 1e3
+            comp = [c["duration_s"] * 1e3 for c in ev.get("compact", r.name)]
+            per[r.name] = {
+                "records": len(app), "append_ms_median": float(np.median(dur)) if len(dur) else None,
+                "append_ms_p99": float(np.percentile(dur, 99)) if len(dur) else None,
+                "append_bytes": int(sum(a["bytes"] for a in app)), "wal_bytes": r.wal_size_bytes(),
+                "snapshot_bytes": _dir_bytes(snaps) if snaps.exists() else 0,
+                "compactions": len(comp), "compaction_ms": comp, "seq": r._seq,
+            }
+        m["wal"] = per
+        probe_lookup_kernel.reset()
+        for i in range(2):
+            t0 = time.perf_counter()
+            reborn.append(dc.start_link(dc.AWLWWMap, transport=t, **opts(i)))
+            sync()
+            per[f"{tag}{i}"]["recover_s"] = time.perf_counter() - t0
+        m["launches_during_recovery"] = launches()
+        for i, r in enumerate(reborn):
+            p = per[r.name]
+            # WAL_RECOVER spans the restart's recovery: reading the log
+            # and the snapshot, the rehydrate and the replay (no device
+            # synchronise; ``recover_s`` is the whole restart, synchronised)
+            rec = ev.get("recover", r.name)
+            p["wal_recover_s"] = rec[-1]["duration_s"] if rec else None
+            p["records_replayed"] = rec[-1]["records"] if rec else 0
+            p["recovered_bytes"] = rec[-1]["bytes"] if rec else 0
+            post = (r.canonical_state_bytes(), r.read(), r.node_id, r._seq)
+            for what, a, b in zip(("canonical bytes", "read", "node_id", "seq"), pre[i], post):
+                if a != b:
+                    raise AssertionError(f"{leg}: {r.name} recovered with a different {what}")
+        check_on_card(reborn, device)
+        log(f"[durability] {leg}: both replicas crashed and recovered from disk with equal canonical bytes, "
+            f"reads, node ids and seqs; state on {device}; per replica "
+            + json.dumps({k: {f: v for f, v in p.items() if f != "compaction_ms"} for k, p in per.items()})
+            + f" on {device_name}")
+        r1, r2 = reborn
+        probe_lookup_kernel.reset()
+        t0 = time.perf_counter()
+        dc.set_neighbours(r1, [r2])
+        dc.set_neighbours(r2, [r1])
+        # poll a sample (a point read holds the lock briefly; a canonical
+        # pass over the whole map would stall the loops it waits for),
+        # then check the whole state
+        sample = [f"key{i}" for i in range(0, n_keys, max(1, n_keys // 4096))][:4095] + [f"key{n_over - 1}"]
+        while dc.read_keys(r2, sample) != {k: want[k] for k in sample}:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{leg}: replica 2 did not catch up after the recovery")
+            time.sleep(0.2)
+        settle(reborn, "after the recovery")
+        m["catch_up_s"] = time.perf_counter() - t0
+        # counter continuity: fresh keys are new dots in buckets the
+        # peer's context already covers, so a re-minted counter would be
+        # dropped there
+        m.update(timed_propagations(r1, r2, t, arrivals, deadline, lambda i: f"post{i}"))
+        probe = [f"key{i}" for i in range(0, n_keys, max(1, n_keys // 4096))][:4086] + [f"post{i}" for i in range(10)]
+        want.update({f"post{i}": i for i in range(10)})
+        settle(reborn, "after the post-recovery writes")
+        for r in reborn:
+            if dc.read_keys(r, probe) != {k: want[k] for k in probe}:
+                raise AssertionError(f"{leg}: {r.name}: read_keys after recovery differs from the written map")
+        m["launches_after_recovery"] = launches()
+        m["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+        log(f"[durability] {leg}: the pair caught up to equal canonical bytes {m['catch_up_s']:.3f} s after "
+            f"the recovery; then 10 single-op propagations (ms): "
+            f"{[round(x, 3) for x in m['propagation_ms']]} median {float(np.median(m['propagation_ms'])):.3f}; "
+            f"replica 2's mailbox before each {m['queued_before']}, messages it handled until each arrived "
+            f"{m['handled_during']}; "
+            f"read_keys of {len(probe)} keys equal on both; kernel launches before the crash "
+            f"{m['launches_before_crash']}, during recovery {m['launches_during_recovery']}, after "
+            f"{m['launches_after_recovery']}; peak memory {m['peak_mem_bytes']} B on {device_name}")
+        return m
+    finally:
+        ev.close()
+        telemetry.detach(telemetry.SYNC_DONE, arrivals)
+        for r in reps:
+            r.crash()
+        for r in reborn:
+            r.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fleet_wal(n: int, device_name: str, device: str = "cuda") -> dict:
+    """Phase 7a's ingress round shape (n senders, 4 fresh keys a sender a
+    round, 1 warm-up and 5 timed ``fleet.drain()`` rounds) into a binned
+    fleet without and then with a ``wal_dir`` per member (the JAX
+    package's WAL defaults: one fsynced ``entries`` record per merged
+    message). Then every WAL member crashes and recovers as a solo
+    replica with equal canonical bytes."""
+    import gc
+    import shutil
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root = WAL_ROOT / "fleet"
+    out: dict = {"replicas": n}
+    for wal in (False, True):
+        gc.collect()
+        shutil.rmtree(root, ignore_errors=True)
+        t, clock = LocalTransport(), LogicalClock()
+        mk = lambda name, **kw: dc.start_link(
+            dc.AWLWWMap, threaded=False, transport=t, clock=clock, capacity=(1 << FLEET_DEPTH) * 16,
+            tree_depth=FLEET_DEPTH, sync_timeout=1e9, device=device, name=name, **kw,
+        )
+        wal_opts = lambda i: {"wal_dir": str(root / f"m{i}"), "fsync_mode": WAL_FSYNC_MODE} if wal else {}
+        members = [mk(f"fw{i}", node_id=10_000 + i, **wal_opts(i)) for i in range(n)]
+        senders = [mk(f"fws{i}") for i in range(n)]
+        fleet = dc.Fleet(members)
+        reborn: list = []
+        try:
+            for s, r in zip(senders, members):
+                s.set_neighbours([r])
+            dts = []
+            for rnd in range(FLEET_ROUNDS + 1):
+                base = 1_000_003 * rnd
+                for i, s in enumerate(senders):
+                    s.mutate_batch("add", [[base + i * 1000 + j, base + i * 1000 + j]
+                                           for j in range(FLEET_KEYS_PER_ROUND)])
+                for s in senders:
+                    s.sync_to_all()
+                for r in members:
+                    if _entries_to(t, r.addr) < 1:
+                        raise AssertionError(f"fleet WAL leg: member {r.name} got no entries")
+                sync()
+                t1 = time.perf_counter()
+                fleet.drain()
+                sync()
+                if rnd > 0:
+                    dts.append(time.perf_counter() - t1)
+                for s in senders:
+                    t.drain(s.addr)
+            key = "fleet_wal" if wal else "fleet"
+            out[f"{key}_merges_per_sec"] = n / float(np.median(dts))
+            out[f"{key}_round_ms"] = [x * 1e3 for x in dts]
+            out[f"{key}_dispatches"] = fleet.stats()["dispatches"]
+            check_on_card(members, device)
+            if wal:
+                pre = [(r.canonical_state_bytes(), r.node_id, r._seq) for r in members]
+                out["wal_bytes"] = sum(r.wal_size_bytes() for r in members)
+                for r in members:
+                    r.crash()
+                t1 = time.perf_counter()
+                for i in range(n):
+                    reborn.append(dc.start_link(
+                        dc.AWLWWMap, threaded=False, transport=LocalTransport(), clock=LogicalClock(),
+                        capacity=(1 << FLEET_DEPTH) * 16, tree_depth=FLEET_DEPTH, sync_timeout=1e9,
+                        device=device, name=f"fw{i}", **wal_opts(i)))
+                sync()
+                out["recover_s"] = time.perf_counter() - t1
+                for i, r in enumerate(reborn):
+                    if (r.canonical_state_bytes(), r.node_id, r._seq) != pre[i]:
+                        raise AssertionError(f"fleet WAL leg: member {r.name} recovered differently")
+                check_on_card(reborn, device)
+        finally:
+            for r in members + senders:
+                r.crash()
+            for r in reborn:
+                r.crash()
+            shutil.rmtree(root, ignore_errors=True)
+    out["wal_over_plain"] = out["fleet_wal_merges_per_sec"] / out["fleet_merges_per_sec"]
+    log(f"[durability] fleet N={n} binned, 7a's ingress rounds: {out['fleet_wal_merges_per_sec']:.3f} merges/s "
+        f"with a WAL per member vs {out['fleet_merges_per_sec']:.3f} without (ratio {out['wal_over_plain']:.4f}); "
+        f"WAL round ms {[round(x, 3) for x in out['fleet_wal_round_ms']]}; {out['wal_bytes']} WAL bytes; every "
+        f"member crashed and recovered solo with equal canonical bytes, node id and seq in {out['recover_s']:.3f} s "
+        f"on {device_name}")
+    return out
+
+
+#: seconds phase 7 keeps free for phase 8 when it decides whether its
+#: N = 1024 leg runs (phase 8 took 259.546 s on an H100 at 700 W in the
+#: last whole run before this guard)
+DURABILITY_RESERVE_S = 300.0
+#: phase 8's legs: the default store at phase 3b's size, the hash store
+#: at 2^17 keys (a compaction snapshot at its last load batch, as 8a's),
+#: and the fleet at 7a's first size
+DURABILITY_KEYS = 1 << 20
+DURABILITY_HASH_KEYS = 1 << 17
+DURABILITY_FLEET_N = 256
+
+
+def phase_durability(device_name: str, keys: int = DURABILITY_KEYS, hash_keys: int = DURABILITY_HASH_KEYS,
+                     fleet_n: int = DURABILITY_FLEET_N, device: str = "cuda") -> dict:
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    t0 = time.perf_counter()
+    out = {"8a": durability_leg("dura", None, keys, device_name, device)}
+    for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
+        ln = out["8a"][when]
+        if ln[probe_lookup_kernel.name] or ln[batched_roots_kernel.name]:
+            raise AssertionError(f"8a: a kernel was launched on the binned durability path: {ln}")
+    out["8b"] = durability_leg("durh", "hash", hash_keys, device_name, device,
+                               compact_every=max(1, hash_keys // 1024), subscribers=True)
+    probe_total = sum(out["8b"][w][probe_lookup_kernel.name] for w in
+                      ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"))
+    out["8b"]["probe_launches"] = probe_total
+    if device == "cuda" and out["8b"]["launches_after_recovery"][probe_lookup_kernel.name] <= 0:
+        raise AssertionError("8b: the probe kernel was not launched on the recovered hash tables")
+    out["8c"] = fleet_wal(fleet_n, device_name, device)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[durability] phase 8 {out['phase_s']:.3f} s; probe launches on the hash leg {probe_total} "
+        f"by HxWxQ (before the crash {out['8b']['launches_before_crash']['probe_by_shape']}, during recovery "
+        f"{out['8b']['launches_during_recovery']['probe_by_shape']}, after "
+        f"{out['8b']['launches_after_recovery']['probe_by_shape']})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--keys", type=int, default=1 << 20, help="keys loaded in phases 3 and 3b")
+    ap.add_argument("--keys", type=int, default=1 << 20,
+                    help="keys loaded in phases 3b and 8a; phases 3 and 8b load an eighth")
     ap.add_argument("--only", default="", help="run only phase 1 and these phases (e.g. 7); prints no result")
     args = ap.parse_args()
 
@@ -1707,7 +2190,10 @@ def main() -> int:
         if "4" in args.only:
             phase_cuda_vs_cpu()
         if "7" in args.only:
-            log("[fleet-metrics] " + json.dumps(phase_fleet(name_power, t_start)))
+            reserve = DURABILITY_RESERVE_S if "8" in args.only else 0.0
+            log("[fleet-metrics] " + json.dumps(phase_fleet(name_power, t_start, reserve_s=reserve)))
+        if "8" in args.only:
+            log("[durability-metrics] " + json.dumps(phase_durability(name_power)))
         log(f"[env] total {time.perf_counter() - t_start:.3f} s (phases 1 and {args.only} only)")
         return 0
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
@@ -1718,27 +2204,63 @@ def main() -> int:
     timed = kernel_timings(name_power)
     probe = kernel_row(probe_lookup_kernel, probe_err, timed["probe"])
     roots = kernel_row(batched_roots_kernel, roots_err, timed["roots"])
-    m = phase_slice(args.keys)
+    phase_t = {"1-2": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
+    # phase 3 runs at an eighth of the key count (2^17 by default) so
+    # that the whole run, phase 8 included, stays inside its time limit
+    m = phase_slice(args.keys // 8)
+    phase_t["3"] = time.perf_counter() - t_phase
     log("[slice-metrics] " + json.dumps(m))
+    t_phase = time.perf_counter()
     b = phase_binned(args.keys, name_power)
+    phase_t["3b"] = time.perf_counter() - t_phase
     log("[binned-metrics] " + json.dumps(b))
-    probe["launches"] = m["launches"]
     probe["max_abs_err"] = max(probe["max_abs_err"], m["table_max_abs_err"])
-    for row in probe["shapes"]:  # the replica path's tables have m["table_size"] lanes
-        sh = row["shape"]
-        on_path = sh["H"] == m["table_size"] and sh["W"] == 32 and sh["hits"] > 0
-        row["launches"] = m["launches_by_q"].get(str(sh["Q"]), 0) if on_path else 0
+    t_phase = time.perf_counter()
     phase_cuda_vs_cpu()
+    phase_t["4"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     f = phase_fanin(name_power)
     g = phase_ring_gossip(f.pop("base"))
+    phase_t["5-6"] = time.perf_counter() - t_phase
     log("[fanin-metrics] " + json.dumps(f))
     log("[gossip-metrics] " + json.dumps(g))
-    fl = phase_fleet(name_power, t_start)
+    t_phase = time.perf_counter()
+    fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S)
+    phase_t["7"] = time.perf_counter() - t_phase
     log("[fleet-metrics] " + json.dumps(fl))
-    probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name]}
+    t_phase = time.perf_counter()
+    du = phase_durability(name_power, keys=args.keys, hash_keys=args.keys // 8)
+    phase_t["8"] = time.perf_counter() - t_phase
+    log("[durability-metrics] " + json.dumps(du))
+    fleet_256 = fl.get("ingress_binned_256", {}).get("fleet_merges_per_sec")
+    log(f"[durability] beside the runs without a WAL: 8a load_wal_s {du['8a']['load_wal_s']:.3f} s against 3b's "
+        f"load_s {b['load_s']:.3f} s; 8c {du['8c']['fleet_wal_merges_per_sec']:.3f} merges/s against 7a's N=256 "
+        f"{fleet_256} on {name_power}")
+    log("[env] seconds by phase " + json.dumps({k: round(v, 3) for k, v in phase_t.items()}))
+    probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
+                                 "durability_hash": du["8b"]["probe_launches"]}
+    probe["launches"] = sum(probe["launches_by_path"].values())
+    # the replica paths' launches by the exact shape they ran at, each
+    # row's launches and loss from its own shape: the headline rows take
+    # the launches at theirs (the hitting row only), every other shape a
+    # path ran at gets a row of its own, timed now
+    by_shape: dict = dict(m["launches_by_shape"])
+    for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
+        for k, n in du["8b"][when]["probe_by_shape"].items():
+            by_shape[k] = by_shape.get(k, 0) + n
+    head_keys = set()
+    for row in probe["shapes"]:
+        sh = row["shape"]
+        k = f"{sh['H']}x{sh['W']}x{sh['Q']}"
+        row["launches"] = by_shape.get(k, 0) if sh["hits"] > 0 else 0
+        head_keys.add(k)
+    probe["shapes"] += path_probe_rows(name_power, by_shape, head_keys)
+    if sum(row["launches"] for row in probe["shapes"]) != sum(by_shape.values()):
+        raise AssertionError(f"probe launches by shape {by_shape} are not all in the timed rows")
     roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
     roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"],
-                                 "fleet": fl["launches"][batched_roots_kernel.name]}
+                                 "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0}
     roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

@@ -15,13 +15,18 @@ hand-written CUDA kernel for Hopper (``csrc/probe.cu``); and the
 binned-store fan-in with the digest-tree roots fold as the second
 (``csrc/roots.cu``); and batched replica fleets —
 ``start_fleet(n)``, one device call a wave for many replicas' ingress
-merges and sync-tick extractions, on both stores. See ``ROADMAP.md``
-for what comes next.
+merges and sync-tick extractions, on both stores; and durability and
+adversarial delivery — snapshot storage (``MemoryStorage``,
+``FileStorage``), the write-ahead delta log (``wal_dir=``, ``WalLog``),
+crash recovery with the node id and counters kept, fault points on
+every commit boundary, and the seeded ``SimNetwork``. See
+``ROADMAP.md`` for what comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (
     AWLWWMap,
     DeltaCrdt,
+    child_spec,
     mutate,
     mutate_async,
     mutate_batch,
@@ -35,6 +40,9 @@ from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
 from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
+from delta_crdt_ex_tpu_torch.runtime.simnet import SimNetwork
+from delta_crdt_ex_tpu_torch.runtime.storage import FileStorage, MemoryStorage, Storage
+from delta_crdt_ex_tpu_torch.runtime.wal import WalLog
 
 __version__ = "0.1.0"
 
@@ -43,10 +51,16 @@ __all__ = [
     "AWSet",
     "BinnedAWLWWMap",
     "DeltaCrdt",
+    "FileStorage",
     "Fleet",
     "HashAWLWWMap",
     "HashAWSet",
+    "MemoryStorage",
     "Replica",
+    "SimNetwork",
+    "Storage",
+    "WalLog",
+    "child_spec",
     "mutate",
     "mutate_async",
     "mutate_batch",

@@ -1,7 +1,7 @@
 """Public API facade of the PyTorch port — parity with ``DeltaCrdt``
 (``lib/delta_crdt.ex``) and with ``delta_crdt_ex_tpu/api.py``:
-``start_link``, ``start_fleet``, ``set_neighbours``, ``mutate``,
-``mutate_async``, ``mutate_batch``, ``read``, ``read_keys``.
+``start_link``, ``start_fleet``, ``child_spec``, ``set_neighbours``,
+``mutate``, ``mutate_async``, ``mutate_batch``, ``read``, ``read_keys``.
 
 Example (the reference doctest flow, ``delta_crdt.ex:17-28``)::
 
@@ -127,6 +127,21 @@ def start_fleet(
     if threaded:
         fleet.start()
     return fleet
+
+
+def child_spec(opts: dict | None = None) -> dict:
+    """Supervision metadata (reference ``child_spec/1``, ``delta_crdt.ex:68-82``)."""
+    opts = dict(opts or {})
+    crdt = opts.pop("crdt", None)
+    if crdt is None:
+        raise ValueError(f"must specify 'crdt' in options, got: {opts!r}")
+    name = opts.get("name", "DeltaCrdt")
+    shutdown = opts.pop("shutdown", 5.0)
+    return {
+        "id": name,
+        "start": (start_link, (crdt,), opts),
+        "shutdown": shutdown,
+    }
 
 
 def set_neighbours(crdt: Replica, neighbours: list) -> None:

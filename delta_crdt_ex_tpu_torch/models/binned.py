@@ -207,11 +207,21 @@ def from_numpy(cols: dict, device) -> BinnedStore:
     return BinnedStore(**out)
 
 
-def to_numpy(state: BinnedStore) -> dict:
-    """The inverse of :func:`from_numpy`: ``{column: numpy array}`` in
-    the JAX package's dtypes."""
+def host_columns(host: dict, columns: dict) -> dict:
+    """``{column: numpy array}`` in the JAX package's dtypes, in the
+    order of ``columns``, from host copies of the port's columns."""
     out = {}
-    for name, want in COLUMNS.items():
-        a = getattr(state, name).detach().cpu().numpy()
+    for name, want in columns.items():
+        a = np.asarray(host[name])
         out[name] = np.ascontiguousarray(a).view(np.uint64) if want == np.uint64 else a.astype(want)
     return out
+
+
+def to_numpy(state: BinnedStore, get=None) -> dict:
+    """The inverse of :func:`from_numpy`: ``{column: numpy array}`` in
+    the JAX package's dtypes and field order. ``get`` copies the tensor
+    dict to the host (an audited transfer site's ``get``; default: one
+    ``.cpu()`` a column)."""
+    cols = {name: getattr(state, name) for name in COLUMNS}
+    host = get(cols) if get is not None else {c: t.detach().cpu().numpy() for c, t in cols.items()}
+    return host_columns(host, COLUMNS)

@@ -18,7 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import BinnedStore, pow2_tier as _pow2, pow4_tier as _pow4
+from delta_crdt_ex_tpu_torch.models.binned import (
+    BinnedStore,
+    from_numpy as binned_store_from_numpy,
+    pow2_tier as _pow2,
+    pow4_tier as _pow4,
+    to_numpy as binned_store_to_numpy,
+)
 from delta_crdt_ex_tpu_torch.ops import binned as binned_ops
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import (
@@ -458,6 +464,9 @@ class BinnedAWLWWMap:
     backend = "binned"
     #: static (non-tensor) Store fields — none for this backend
     STORE_META = ()
+    #: snapshot columns to and from numpy in the JAX dtypes
+    to_numpy = staticmethod(binned_store_to_numpy)
+    from_numpy = staticmethod(binned_store_from_numpy)
 
     @staticmethod
     def grow_for_apply(state: BinnedStore) -> BinnedStore:

@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import pow2_tier as _pow2
+from delta_crdt_ex_tpu_torch.models.binned import host_columns, pow2_tier as _pow2
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_REMOVE
 
 #: lanes per probe group (window bases are group-aligned)
@@ -184,18 +184,15 @@ def from_numpy(cols: dict, device, probe_window: int | None = None) -> HashStore
     return HashStore(**out, probe_window=pw)
 
 
-def to_numpy(state: HashStore) -> dict:
+def to_numpy(state: HashStore, get=None) -> dict:
     """The inverse of :func:`from_numpy`: ``{column: numpy array}`` in
-    the JAX package's dtypes, plus ``probe_window``."""
-    out: dict = {}
-    for name, want in COLUMNS.items():
-        a = getattr(state, name).detach().cpu().numpy()
-        if want == np.uint64:
-            a = np.ascontiguousarray(a).view(np.uint64)
-        else:
-            a = a.astype(want)
-        out[name] = a
-    out["probe_window"] = state.probe_window
+    the JAX package's dtypes and field order, plus ``probe_window`` as a
+    plain int (the JAX ``STORE_META``). ``get`` copies the tensor dict
+    to the host (default: one ``.cpu()`` a column)."""
+    cols = {name: getattr(state, name) for name in COLUMNS}
+    host = get(cols) if get is not None else {c: t.detach().cpu().numpy() for c, t in cols.items()}
+    out = host_columns(host, COLUMNS)
+    out["probe_window"] = int(state.probe_window)
     return out
 
 
@@ -335,6 +332,11 @@ class HashAWLWWMap:
 
     #: store backend tag (``api._resolve_store`` maps models across it)
     backend = "hash"
+    #: static (non-tensor) Store fields: snapshots hold them as plain ints
+    STORE_META = ("probe_window",)
+    #: snapshot columns to and from numpy in the JAX dtypes
+    to_numpy = staticmethod(to_numpy)
+    from_numpy = staticmethod(from_numpy)
     new = staticmethod(HashStore.new)
     merge_rows_into = staticmethod(merge_rows_into)
     merge_group_into = staticmethod(merge_group_into)

@@ -796,8 +796,9 @@ class ProbeLookupKernel:
     H ≥ 256).
 
     ``launches`` counts launches and ``launches_by_shape`` counts them by
-    Q (the wire tier of the caller's batch); the wrapper builds the
-    library at first use and raises on any launch error."""
+    (H, W, Q): the table's lanes, its probe window and the wire tier of
+    the caller's batch; the wrapper builds the library at first use and
+    raises on any launch error."""
 
     name = "probe_lookup"
     source = "delta_crdt_ex_tpu_torch/csrc/probe.cu"
@@ -805,7 +806,7 @@ class ProbeLookupKernel:
 
     def __init__(self) -> None:
         self.launches = 0
-        self.launches_by_shape: dict[int, int] = {}
+        self.launches_by_shape: dict[tuple[int, int, int], int] = {}
         self._lib = None
 
     def reset(self) -> None:
@@ -879,7 +880,7 @@ class ProbeLookupKernel:
                 f"probe_lookup kernel launch failed: {lib.probe_error_string(err).decode()}"
             )
         self.launches += 1
-        self.launches_by_shape[Q] = self.launches_by_shape.get(Q, 0) + 1
+        self.launches_by_shape[(H, W, Q)] = self.launches_by_shape.get((H, W, Q), 0) + 1
         return out
 
 

@@ -41,6 +41,12 @@ class Clock:
             self._last = int(out[-1])
         return out
 
+    def observe(self, ts: int) -> None:
+        """Fast-forward past a restored/remote timestamp (crash-restart
+        continuity: restored LWW entries must not out-rank new writes)."""
+        if ts > self._last:
+            self._last = ts
+
 
 class LogicalClock(Clock):
     """Deterministic test clock: 1, 2, 3, …"""

@@ -38,10 +38,12 @@ the replicas' own plan/emit bookkeeping.
 Not ported yet, each raising ``NotImplementedError`` naming its slice
 (``ROADMAP.md`` queue 1): ``mesh=`` (multi-device mesh); ``obs=``,
 :meth:`Fleet.frontdoor`, :meth:`Fleet.obs_varz` and :meth:`Fleet.health`
-(serving and observability). Fleet frames over TCP come with the WAL,
-storage and log shipping slice: the port has only ``LocalTransport``,
-so a sync tick sends directly. Port members have no WAL or checkpoint
-duty and no relay epoch (tree gossip), so those steps are absent.
+(serving and observability). Fleet frames over TCP come with the TCP
+transport and log shipping slice: the port has only ``LocalTransport``,
+so a sync tick sends directly. Port members have no relay epoch (tree
+gossip), so that step is absent. Members with a ``wal_dir`` log what
+the batched merge commits through the solo commit tail, so a crashed
+member recovers as a solo replica.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from delta_crdt_ex_tpu_torch.ops.binned import _i64
 from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica, _LaneLevels, _StackedLevels
 from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
 from delta_crdt_ex_tpu_torch.utils.transfers import as_u32
 
 # audited device↔host transfer sites (the JAX fleet's labels)
@@ -629,9 +632,9 @@ class Fleet:
     def run_duties(self, now: float | None = None) -> None:
         """One pass of every member's periodic duties — the per-replica
         loop body of ``Replica.start``, hoisted so N members share one
-        thread: flush pending mutations, then one batched sync tick for
-        the members whose interval is due. (Port members have no WAL or
-        checkpoint duty.)"""
+        thread: flush pending mutations, the interval checkpoints and
+        the WAL's deferred interval-mode fsync, then one batched sync
+        tick for the members whose interval is due."""
         now = time.monotonic() if now is None else now
         due: list = []
         for rep in self.replicas:
@@ -641,6 +644,19 @@ class Fleet:
             if now >= getattr(rep, "_fleet_next_sync", 0.0):
                 due.append(rep)
                 rep._fleet_next_sync = now + rep.sync_interval
+            if rep.storage_mode == "interval" and rep.storage_module is not None:
+                nxt = getattr(rep, "_fleet_next_ckpt", None)
+                if nxt is None:
+                    # first sight: one interval out, as the solo loop
+                    # (an immediate checkpoint for every member would
+                    # stall the shared thread at start)
+                    rep._fleet_next_ckpt = now + rep.checkpoint_interval
+                elif now >= nxt:
+                    rep.checkpoint()
+                    rep._fleet_next_ckpt = now + rep.checkpoint_interval
+            with rep._lock:
+                if rep._wal is not None:
+                    rep._wal.maybe_sync()
         if due:
             self.sync_tick(due)
 
@@ -654,6 +670,7 @@ class Fleet:
 
         def loop():
             while not self._stop.is_set():
+                faultpoint("fleet.loop")
                 self.tick()
                 self.run_duties()
                 self._wake.wait(timeout=min(min_interval, 0.05))
@@ -664,10 +681,11 @@ class Fleet:
         return self
 
     def stop(self) -> None:
-        """Stop the loop and every member (best-effort final sync, the
-        solo ``Replica.stop`` contract per member). Each member's goodbye
-        sync is drained before the next member stops: the fleet is the
-        loop that serves it."""
+        """Stop the loop and every member (best-effort final sync and
+        WAL close, the solo ``Replica.stop`` contract per member). Each
+        member's goodbye sync is drained before the next member stops:
+        the fleet is the loop that serves it, so the recipients merge
+        (and log) it before their own WALs close."""
         if self._thread is not None:
             self._stop.set()
             self._wake.set()

@@ -29,12 +29,21 @@ carries, line for line the JAX replica's semantics:
 - the fleet hooks (``fleet_prepare`` / ``fleet_commit`` /
   ``fleet_handle_group``, the lazily materialised ``state`` of a
   fleet-held lane, the egress plan/extract/emit split) that
-  :mod:`delta_crdt_ex_tpu_torch.runtime.fleet` drives.
+  :mod:`delta_crdt_ex_tpu_torch.runtime.fleet` drives;
+- durability: pluggable snapshot storage (``storage_module``,
+  ``storage_mode``) and the write-ahead delta log (``wal_dir``): every
+  local batch and every merged slice is one record, written before
+  anything observes it, and a restart with the same ``name`` recovers
+  snapshot + replay, bit for bit, with the node id and counters kept;
+  compaction checkpoints gated by the peers' acks; ``crash()`` and
+  ``checkpoint()``; the labelled fault points of
+  :mod:`delta_crdt_ex_tpu_torch.utils.faults` on every commit boundary.
+  Snapshots and WAL records hold the JAX package's dtypes and orders,
+  so either package recovers what the other wrote.
 
-WAL and storage, log shipping, tree gossip, serving, the observability
-plane, fault injection and the device mesh wait for later slices: their
-options raise ``NotImplementedError`` naming the slice
-(:data:`LATER_OPTIONS`). Sync slices always travel on the host
+Log shipping, tree gossip, serving and the observability plane wait for
+later slices: their options raise ``NotImplementedError`` naming the
+slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host
 plane (numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the
 wire stays the JAX package's and every one of them may coalesce.
 """
@@ -42,6 +51,7 @@ wire stays the JAX package's and every one of them may coalesce.
 from __future__ import annotations
 
 import logging
+import os
 import secrets
 import threading
 import time
@@ -56,8 +66,17 @@ from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOV
 from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
 from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
 from delta_crdt_ex_tpu_torch.runtime.clock import Clock
+from delta_crdt_ex_tpu_torch.runtime.storage import (
+    FileStorage,
+    Snapshot,
+    Storage,
+    name_key,
+    require_layout,
+)
 from delta_crdt_ex_tpu_torch.runtime.transport import Down, LocalTransport, default_transport
+from delta_crdt_ex_tpu_torch.runtime.wal import ReplayClock, WalLog
 from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
 from delta_crdt_ex_tpu_torch.utils.hashing import (
     key_hash64,
     key_hash64_batch,
@@ -72,6 +91,7 @@ _SLICE_COLUMNS = ("key", "valh", "ts", "node", "ctr", "alive")
 
 # audited device↔host transfer sites (the JAX replica's labels)
 _TR_DIGEST_LEVELS = transfers.register("replica.digest_levels")
+_TR_SNAPSHOT = transfers.register("replica.snapshot")
 _TR_READ_KEYS = transfers.register("replica.read_keys")
 _TR_APPLY_COUNTS = transfers.register("replica.apply_counts")
 _TR_INGEST_COUNTS = transfers.register("replica.ingest_counts")
@@ -82,6 +102,7 @@ _TR_CANONICAL_STATE = transfers.register("replica.canonical_state")
 _TR_OWN_CTR_CACHE = transfers.register("replica.own_ctr_cache")
 _TR_SLICE_PAYLOAD_DOTS = transfers.register("replica.slice_payload_dots")
 _TR_SLICE_WIRE = transfers.register("replica.slice_wire")
+_TR_WAL_ENTRIES = transfers.register("replica.wal_entries")
 _TR_GC_SCAN = transfers.register("replica.gc_scan")
 _TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
 
@@ -90,18 +111,9 @@ _TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
 #: leaves the feature off (passing that value is accepted; ``...`` =
 #: the option only tunes an unported feature, so any value raises)
 LATER_OPTIONS = {
-    "storage_module": ("WAL and storage", None),
-    "storage_mode": ("WAL and storage", ...),
-    "wal_dir": ("WAL and storage", None),
-    "fsync_mode": ("WAL and storage", ...),
-    "segment_bytes": ("WAL and storage", ...),
-    "compact_every": ("WAL and storage", ...),
-    "checkpoint_interval": ("WAL and storage", ...),
-    "membership_compaction": ("WAL and storage", False),
-    "membership_retain": ("WAL and storage", ...),
-    "log_shipping": ("WAL, storage and log shipping", False),
-    "catchup_chunk_rows": ("WAL, storage and log shipping", ...),
-    "catchup_suffix_ratio": ("WAL, storage and log shipping", ...),
+    "log_shipping": ("TCP transport and log shipping", False),
+    "catchup_chunk_rows": ("TCP transport and log shipping", ...),
+    "catchup_suffix_ratio": ("TCP transport and log shipping", ...),
     "tree_gossip": ("tree gossip", False),
     "tree_fanout": ("tree gossip", ...),
     "tree_seed": ("tree gossip", ...),
@@ -247,6 +259,12 @@ class Replica:
         sync_interval: float = 0.2,
         max_sync_size: int | str = 200,
         on_diffs: Callable | tuple | None = None,
+        storage_module: Storage | None = None,
+        storage_mode: str = "every_op",
+        wal_dir: str | None = None,
+        fsync_mode: str = "batch",
+        segment_bytes: int = 4 << 20,
+        compact_every: int = 1024,
         transport: LocalTransport | None = None,
         clock: Clock | None = None,
         capacity: int = 1024,
@@ -254,10 +272,13 @@ class Replica:
         tree_depth: int = 12,
         levels_per_round: int = 8,
         sync_timeout: float | None = None,
+        checkpoint_interval: float = 5.0,
         eager_deltas: bool = True,
         ingress_coalesce: bool = True,
         max_coalesce: int = 16,
         ingress_batch: int = 256,
+        membership_compaction: bool = True,
+        membership_retain: int | None = None,
         gc_interval_ops: int = 4096,
         device="cuda",
         **later,
@@ -275,6 +296,37 @@ class Replica:
         self.name = name if name is not None else f"crdt-{secrets.token_hex(6)}"
         self.sync_interval = sync_interval
         self.on_diffs = on_diffs
+        self.storage_module = storage_module
+        self.storage_mode = storage_mode
+        self.checkpoint_interval = checkpoint_interval
+        #: durable delta log: with a ``wal_dir``, ``every_op`` durability
+        #: is an O(delta) record append instead of an O(state) image
+        #: write, and snapshots become compaction checkpoints
+        self.compact_every = int(compact_every)
+        self._wal: WalLog | None = None
+        self._wal_unc = 0  # records appended since the last compaction
+        self._replaying = False
+        if wal_dir is not None:
+            if self.storage_module is None:
+                # compaction checkpoints live beside the log, fsynced:
+                # compaction DELETES the fsynced records they supersede
+                self.storage_module = FileStorage(
+                    os.path.join(wal_dir, "snapshots"),
+                    fsync=fsync_mode != "none",
+                )
+            elif getattr(self.storage_module, "fsync", None) is False:
+                logger.warning(
+                    "WAL compaction checkpoints for %r go through a "
+                    "non-fsynced storage module; pass "
+                    "FileStorage(..., fsync=True) for machine-crash "
+                    "durability",
+                    self.name,
+                )
+            self._wal = WalLog(
+                os.path.join(wal_dir, f"replica_{name_key(self.name)}"),
+                fsync_mode=fsync_mode,
+                segment_bytes=segment_bytes,
+            )
         self.tree_depth = tree_depth
         self.num_buckets = 1 << tree_depth
         self.levels_per_round = levels_per_round
@@ -342,6 +394,22 @@ class Replica:
         self._neighbours: list[Any] = []
         self._monitors: set[Any] = set()
         self._outstanding: dict[Any, float] = {}
+        #: membership-driven WAL compaction: per monitored neighbour, the
+        #: highest local ``_seq`` that peer is known to have observed (an
+        #: acked walk round that opened at that seq). Segment reclaim
+        #: never passes the minimum over the monitored set, bounded by
+        #: ``membership_retain`` records of history
+        self.membership_compaction = bool(membership_compaction)
+        self.membership_retain = (
+            int(membership_retain)
+            if membership_retain is not None
+            else 4 * self.compact_every
+        )
+        self._ack_seq: dict[Any, int] = {}
+        self._sync_open_seq: dict[Any, int] = {}
+        #: per-peer applied watermarks: kept in snapshots for the
+        #: log-shipping slice; always empty here
+        self._applied_seq: dict[Any, int] = {}
         self._tree: _LazyLevels | None = None
         #: full-read result cache, maintained incrementally by local
         #: flushes while complete; ``_read_cache_kh`` maps each cached
@@ -354,11 +422,42 @@ class Replica:
         self._thread: threading.Thread | None = None
         self.addr = self.transport.canonical_addr(self.name)
 
-        self._init_fresh(
-            node_id if node_id is not None else (secrets.randbits(63) | 1),
-            capacity,
-            replica_capacity,
+        t_recover = time.perf_counter()
+        wal_header, wal_records = (
+            self._wal.recover() if self._wal is not None else (None, [])
         )
+        snap = self.storage_module.read(self.name) if self.storage_module else None
+        if snap is not None:
+            self._rehydrate(snap)
+            if wal_header is not None and int(wal_header["node_id"]) != self.node_id:
+                raise ValueError(
+                    f"WAL for {self.name!r} belongs to node "
+                    f"{wal_header['node_id']} but the snapshot is node "
+                    f"{self.node_id} — mixed histories in one wal_dir"
+                )
+        elif wal_header is not None:
+            # the crash landed before the first compaction snapshot: fresh
+            # columns, but the WAL header keeps the dot namespace (and an
+            # explicit conflicting node_id is a mixed history too)
+            if node_id is not None and node_id != int(wal_header["node_id"]):
+                raise ValueError(
+                    f"WAL for {self.name!r} belongs to node "
+                    f"{wal_header['node_id']} but node_id={node_id} was "
+                    "requested — mixed histories in one wal_dir"
+                )
+            self._init_fresh(int(wal_header["node_id"]), capacity, replica_capacity)
+        else:
+            self._init_fresh(
+                node_id if node_id is not None else (secrets.randbits(63) | 1),
+                capacity,
+                replica_capacity,
+            )
+        if wal_records:
+            # snapshot + replay: records past the snapshot's sequence
+            # number re-apply through the live flush/merge paths
+            self._wal_replay(wal_records, t_recover)
+        if self._wal is not None:
+            self._wal.bind(self.node_id)
         self.transport.register(self.name, self)
 
     def _init_fresh(self, node_id: int, capacity: int, replica_capacity: int) -> None:
@@ -369,6 +468,263 @@ class Replica:
         state.ctx_gid[0] = _i64(self.node_id)
         self.state = state
         self.self_slot = 0
+
+    # ------------------------------------------------------------------
+    # rehydrate / persist (reference causal_crdt.ex:216-250)
+
+    def _rehydrate(self, snap: Snapshot) -> None:
+        # __dict__.get, not getattr: a legacy pickle missing the field
+        # would otherwise read the dataclass default and pass the guard
+        require_layout(
+            snap.__dict__.get("layout", "<untagged>"), f"snapshot for {self.name!r}"
+        )
+        snap_store = snap.__dict__.get("store", "binned")
+        if snap_store != self.model.backend:
+            raise ValueError(
+                f"snapshot for {self.name!r} was written by the "
+                f"{snap_store!r} dot store but this replica runs "
+                f"{self.model.backend!r} — cross-backend restore goes "
+                "through extraction (see MIGRATING.md), or delete the "
+                "stored snapshot to start fresh"
+            )
+        self.node_id = snap.node_id
+        self._seq = snap.sequence_number
+        # straight onto the replica's device: the JAX dtypes in, the
+        # port's layout out
+        self.state = self.model.from_numpy(snap.arrays, self.device)
+        gids = np.asarray(snap.arrays["ctx_gid"])
+        slots = np.nonzero(gids == np.uint64(self.node_id))[0]
+        if len(slots) != 1:
+            raise ValueError(
+                f"snapshot for {self.name!r} holds node {self.node_id} in "
+                f"{len(slots)} context slots; a snapshot holds it in exactly one"
+            )
+        self.self_slot = int(slots[0])
+        self._payloads = dict(snap.payloads)
+        self._key_terms = dict(snap.key_terms)
+        self.clock.observe(snap.last_ts)
+        self._applied_seq = dict(snap.__dict__.get("peer_seqs") or {})
+        # the snapshot's read map is unknown until a full pass rebuilds it
+        self._read_cache = None
+        self._read_cache_kh = None
+
+    def _snapshot(self) -> Snapshot:
+        # one audited fetch of the full column set, in the JAX package's
+        # dtypes and field order (pickle keeps dict order: snapshot
+        # bytes are a durability format)
+        arrays = self.model.to_numpy(self.state, _TR_SNAPSHOT.get)
+        return Snapshot(
+            node_id=self.node_id,
+            sequence_number=self._seq,
+            arrays=arrays,
+            payloads=dict(self._payloads),
+            key_terms=dict(self._key_terms),
+            last_ts=self.clock._last,
+            peer_seqs=dict(self._applied_seq),
+            store=self.model.backend,
+        )
+
+    def _persist(self) -> None:
+        if self.storage_module is not None and self.storage_mode == "every_op":
+            # every_op durability is the contract: the image is taken
+            # under the lock, and callers opted into blocking on it
+            self.storage_module.write(self.name, self._snapshot())
+
+    def _wal_arrays_host(self, a: dict) -> dict:
+        """Host numpy image of an EntriesMsg column dict for a WAL
+        record, in the message's column order (a record pickles dict
+        order into its bytes). Host-plane bodies pass through with no
+        crossing counted; a tensor body crosses once, under
+        ``replica.wal_entries``."""
+        if isinstance(a["key"], np.ndarray):
+            return {c: np.asarray(v) for c, v in a.items()}
+        return wire_from_host(_TR_WAL_ENTRIES.get(a))
+
+    def _durable(self, record_fn: Callable[[], dict]) -> None:
+        """One durability point per applied batch/slice: with a WAL an
+        O(delta) record append + group commit (``fsync_mode`` cadence);
+        without, the reference's ``every_op`` full-image write.
+        ``record_fn`` is lazy so the non-WAL path never builds a record.
+        Replay does not re-log what it is replaying."""
+        if self._replaying:
+            return
+        faultpoint("replica.durable")
+        if self._wal is None:
+            return self._persist()
+        t0 = time.perf_counter()
+        try:
+            n_bytes = self._wal.append(record_fn())
+            self._wal.commit()
+        except BaseException:
+            # drop the staged record: the caller rolls the seq back, and
+            # a stale staged record would flush beside the retry's
+            # re-minted seq (a duplicate-seq log is corruption)
+            self._wal.abort()
+            raise
+        self._wal_unc += 1
+        if telemetry.has_handlers(telemetry.WAL_APPEND):
+            telemetry.execute(
+                telemetry.WAL_APPEND,
+                {
+                    "bytes": n_bytes,
+                    "records": 1,
+                    "duration_s": time.perf_counter() - t0,
+                },
+                {"name": self.name},
+            )
+        if self._wal_unc >= self.compact_every:
+            self._compact_wal()
+
+    def _commit_abort(self, exc: BaseException) -> None:
+        """Shared tail of every failed durability point: roll the seq
+        back, so it keeps naming the last durable record (recovery
+        replays a contiguous prefix)."""
+        self._seq -= 1
+        logger.debug("commit of seq %d aborted: %r", self._seq + 1, exc)
+
+    def _durable_batch(self, batch: list, ts) -> None:
+        """Durability point for one local mutation batch — the single
+        definition of the ``batch`` record schema (both flush paths)."""
+        if not self._replaying:
+            faultpoint("replica.commit.batch")
+        self._durable(
+            lambda: {
+                "kind": "batch",
+                "seq": self._seq,
+                "ops": [tuple(b) for b in batch],
+                "ts": ts.tolist(),
+            }
+        )
+
+    def _ack_floor(self) -> int:
+        """Membership compaction gate: the highest seq every MONITORED
+        peer is known to have observed. No monitored peers, or the gate
+        off, means the snapshot alone caps reclaim."""
+        if not self.membership_compaction:
+            return self._seq
+        peers = [n for n in self._monitors if n != self.addr]
+        if not peers:
+            return self._seq
+        return min(self._ack_seq.get(n, 0) for n in peers)
+
+    def _reclaim_floor(self) -> int:
+        """The seq WAL segment reclaim may proceed to: the ack floor,
+        bounded below by the ``membership_retain`` horizon and above by
+        the snapshot seq — the one definition compaction and ``stats()``
+        share."""
+        return min(
+            self._seq,
+            max(self._ack_floor(), self._seq - self.membership_retain),
+        )
+
+    def _compact_wal(self) -> None:
+        """Checkpoint a snapshot and reclaim fully-covered segments.
+        Segments are only DELETED when the checkpoint store is known to
+        be disk-backed (it has an ``fsync`` attribute, as
+        ``FileStorage`` does): a volatile snapshot (``MemoryStorage``)
+        must not cost committed records."""
+        t0 = time.perf_counter()
+        self.storage_module.write(self.name, self._snapshot())
+        floor = self._reclaim_floor()
+        if getattr(self.storage_module, "fsync", None) is not None:
+            deleted, freed = self._wal.compact(floor)
+        else:
+            deleted, freed = 0, 0
+            self._wal.rotate()  # still bound the active segment's size
+        self._wal_unc = 0
+        if telemetry.has_handlers(telemetry.WAL_COMPACT):
+            telemetry.execute(
+                telemetry.WAL_COMPACT,
+                {
+                    "segments_deleted": deleted,
+                    "bytes_reclaimed": freed,
+                    "ack_floor": floor,
+                    "duration_s": time.perf_counter() - t0,
+                },
+                {"name": self.name},
+            )
+
+    def _wal_replay(self, records: list, t0: float) -> None:
+        """Replay recovered records past the snapshot's sequence number
+        through the live flush/merge paths. Local batches re-mint their
+        logged LWW timestamps via :class:`ReplayClock` (dot counters
+        then reassign identically from the restored per-bucket context),
+        so the replayed state is bit for bit the pre-crash one. Diff
+        subscribers stay silent: recovery re-applies history, it does
+        not re-announce it."""
+        base = self._seq
+        real_clock, real_diffs = self.clock, self.on_diffs
+        self._replaying = True
+        self.on_diffs = None
+        applied = 0
+        max_ts = 0
+        try:
+            for rec in records:
+                seq = int(rec["seq"])
+                if seq <= base:
+                    continue  # the snapshot already covers this record
+                if rec["kind"] == "batch":
+                    ts = rec["ts"]
+                    self.clock = ReplayClock(ts)
+                    self._flush_batch([tuple(op) for op in rec["ops"]])
+                    if ts:
+                        max_ts = max(max_ts, int(max(ts)))
+                elif rec["kind"] == "entries":
+                    self._replay_entries(rec)
+                else:  # forward-compat: unknown kinds are skipped loudly
+                    logger.warning("WAL replay: unknown record kind %r", rec["kind"])
+                self._seq = seq  # lockstep even across skipped records
+                applied += 1
+        finally:
+            self.clock, self.on_diffs = real_clock, real_diffs
+            self._replaying = False
+        # clock continuity: replayed local stamps must not out-rank new
+        # writes (the snapshot's last_ts was observed in _rehydrate)
+        self.clock.observe(max_ts)
+        if telemetry.has_handlers(telemetry.WAL_RECOVER):
+            telemetry.execute(
+                telemetry.WAL_RECOVER,
+                {
+                    "records": applied,
+                    "bytes": self._wal.recovered_bytes,
+                    "duration_s": time.perf_counter() - t0,
+                },
+                {"name": self.name},
+            )
+
+    def _replay_entries(self, rec: dict) -> None:
+        sl = slice_from_wire(rec["arrays"], self.device)
+        self._register_slice_payloads(rec["payloads"])
+        try:
+            self.state, res = self.model.merge_rows_into(
+                self.state, sl, on_grow=self._grown_telemetry
+            )
+        except CtxGapError:
+            # pre-crash this slice merged cleanly, so a gap means the
+            # log lost an earlier record: skip it and let anti-entropy
+            # repair (never crash a recovery)
+            logger.warning(
+                "WAL replay: gapped entries record seq %s skipped", rec["seq"]
+            )
+            self._gc_pressure += len(rec["payloads"])
+            return
+        self._note_state_changed(
+            lambda ins=res.n_inserted, kill=res.n_killed: (ins, kill)
+        )
+        self._gc_pressure += len(rec["payloads"]) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        self._maybe_gc()
+
+    def checkpoint(self) -> None:
+        """Explicit snapshot (for ``storage_mode="interval"``); with a
+        WAL a compaction point — the snapshot covers the log, so covered
+        segments are reclaimed."""
+        with self._lock:
+            if self.storage_module is None:
+                return
+            if self._wal is not None:
+                self._compact_wal()
+            else:
+                self.storage_module.write(self.name, self._snapshot())
 
     @property
     def state(self):
@@ -506,6 +862,9 @@ class Replica:
             self._outstanding = {a: v for a, v in self._outstanding.items() if a in addrs}
             self._push_cursor = {a: c for a, c in self._push_cursor.items() if a in addrs}
             self._rm_cursor = {a: c for a, c in self._rm_cursor.items() if a in addrs}
+            # removed peers stop gating WAL segment reclaim immediately
+            self._ack_seq = {a: s for a, s in self._ack_seq.items() if a in addrs}
+            self._sync_open_seq = {a: s for a, s in self._sync_open_seq.items() if a in addrs}
             self.sync_to_all()
 
     # ------------------------------------------------------------------
@@ -624,6 +983,14 @@ class Replica:
                 self._read_cache_kh = None
                 maintained = False
 
+        # durability happens-before publication: a crash between the two
+        # may lose only unpublished work. A failed append rolls the seq
+        # back so it still names the last durable record.
+        try:
+            self._durable_batch(batch, ts)
+        except BaseException as e:
+            self._commit_abort(e)
+            raise
         if need_winners:
             w_after = self._batch_winner_records(touched, any_clear)
             touched_all = dict(touched)
@@ -683,6 +1050,12 @@ class Replica:
                 self._read_cache = None
                 self._read_cache_kh = None
 
+        # durability happens-before publication (see _flush_batch)
+        try:
+            self._durable_batch(batch, ts)
+        except BaseException as e:
+            self._commit_abort(e)
+            raise
         self._note_state_changed(lambda: n_changed, maintained)
         self._gc_pressure += n
         self._maybe_gc()
@@ -994,6 +1367,10 @@ class Replica:
         )
         if self.transport.send(n, msg):
             self._outstanding[n] = now + self.sync_timeout
+            # an eventual AckMsg for this round proves the peer held all
+            # we had when the round OPENED; expired rounds may overlap in
+            # flight, so keep the MINIMUM open seq
+            self._sync_open_seq[n] = min(self._sync_open_seq.get(n, self._seq), self._seq)
             return True
         logger.debug("tried to sync with a dead neighbour: %r", n)
         return False
@@ -1107,18 +1484,29 @@ class Replica:
                 self._handle_entries_inner(msg)
             elif isinstance(msg, sync_proto.AckMsg):
                 self._outstanding.pop(msg.clear_addr, None)
+                # trees were equal when the acked round's walk ran: the
+                # peer covers our state at round open, the watermark WAL
+                # compaction reclaims up to
+                open_seq = self._sync_open_seq.pop(msg.clear_addr, None)
+                if open_seq is not None:
+                    self._ack_seq[msg.clear_addr] = max(
+                        self._ack_seq.get(msg.clear_addr, 0), open_seq
+                    )
             elif isinstance(msg, Down):
                 self._monitors.discard(msg.addr)
                 self._outstanding.pop(msg.addr, None)
+                # a dead peer must not gate segment reclaim forever
+                self._ack_seq.pop(msg.addr, None)
+                self._sync_open_seq.pop(msg.addr, None)
             elif isinstance(msg, (sync_proto.GetLogMsg, sync_proto.LogChunkMsg)):
                 raise NotImplementedError(
                     "log-shipping catch-up is not ported to PyTorch yet; it comes "
-                    "with the WAL, storage and log shipping slice"
+                    "with the TCP transport and log shipping slice"
                 )
             elif isinstance(msg, sync_proto.FleetFrameMsg):
                 raise NotImplementedError(
                     "fleet frames over TCP are not ported to PyTorch yet; they come "
-                    "with the WAL, storage and log shipping slice (its TcpTransport)"
+                    "with the TCP transport and log shipping slice"
                 )
             else:
                 raise TypeError(f"unknown message: {msg!r}")
@@ -1183,6 +1571,12 @@ class Replica:
             _TR_SLICE_WIRE.get({c: getattr(sl, c) for c in names if c not in host})
         )
         arrays = {c: host[c] if c in host else got[c] for c in names}
+        for a in arrays.values():
+            # read-only, as the JAX package's device_get copies are: a
+            # WAL record pickles a read-only array as bytes and a
+            # writable one as a bytearray, so this keeps a receiver's
+            # records byte-identical whichever package sent the slice
+            a.flags.writeable = False
         arrays["rows"] = rows  # row indices are control metadata: numpy
         return arrays, payloads
 
@@ -1235,6 +1629,21 @@ class Replica:
             return
 
         self._seq += 1
+        # durability happens-before publication: log the merged slice
+        # before diffs or telemetry see it, rolling the seq back if the
+        # append fails
+        try:
+            self._durable(
+                lambda: {
+                    "kind": "entries",
+                    "seq": self._seq,
+                    "arrays": self._wal_arrays_host(a),
+                    "payloads": dict(msg.payloads),
+                }
+            )
+        except BaseException as e:
+            self._commit_abort(e)
+            raise
         if want_diffs:
             keys_a = self._winner_records_rows(rows_np[rows_np >= 0])
             touched: dict[int, Any] = {}
@@ -1482,8 +1891,28 @@ class Replica:
         number and one ``SYNC_DONE`` per message (its count summed from
         the kernel's per-row insert and kill counts over its own rows),
         one ``SYNC_ROUND`` per message with the group's duration split
-        evenly. The caller holds the lock and has stored the state."""
-        self._seq += len(msgs)
+        evenly. The caller holds the lock and has stored the state.
+
+        Durability happens-before publication: the group's WAL records
+        land one message at a time, each with its own seq, and a failed
+        append rolls the seq back to the last record that did land, so
+        a recovering replica replays a contiguous prefix of the group."""
+        for m in msgs:
+            self._seq += 1
+            a, payloads = m.arrays, m.payloads
+            try:
+                faultpoint("replica.commit.entries")
+                self._durable(
+                    lambda a=a, payloads=payloads: {
+                        "kind": "entries",
+                        "seq": self._seq,
+                        "arrays": self._wal_arrays_host(a),
+                        "payloads": dict(payloads),
+                    }
+                )
+            except BaseException as e:
+                self._commit_abort(e)
+                raise
         depth = len(msgs)
         if telemetry.has_handlers(telemetry.SYNC_DONE):
             name = self.name
@@ -1583,13 +2012,15 @@ class Replica:
         ``process_pending``: messages and grouped dispatches, the depth
         histogram (group size → dispatches) and the gap fallbacks;
         ``fleet`` the batched dispatches this replica rode as a fleet
-        member."""
+        member; ``wal`` (None without a WAL) the records since the last
+        compaction, the reclaim floor, the segment count and the log
+        horizon."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
             dispatches = self._ingress_dispatches
             messages = self._ingress_messages
-            return {
+            out = {
                 "name": self.name,
                 "node_id": self.node_id,
                 "sequence_number": self._seq,
@@ -1614,7 +2045,24 @@ class Replica:
                 "kernel_launches": {probe_lookup_kernel.name: probe_lookup_kernel.launches},
                 # process-wide per-site device↔host crossings
                 "transfers": transfers.snapshot(),
+                "wal": None,
             }
+            if self._wal is not None:
+                out["wal"] = {
+                    "uncompacted_records": self._wal_unc,
+                    "ack_floor": self._reclaim_floor(),
+                    "segments": len(self._wal.segment_paths()),
+                    "horizon": self._wal.horizon(),
+                }
+            return out
+
+    def wal_size_bytes(self) -> int:
+        """On-disk WAL footprint (segments + staged append buffer); 0
+        without a WAL."""
+        with self._lock:
+            if self._wal is None:
+                return 0
+            return self._wal.size_bytes()
 
     def start(self) -> "Replica":
         """Run the periodic anti-entropy loop in a background thread
@@ -1630,7 +2078,9 @@ class Replica:
 
         def loop():
             next_sync = time.monotonic()
+            next_ckpt = time.monotonic() + self.checkpoint_interval
             while not self._stop.is_set():
+                faultpoint("replica.loop")
                 self.process_pending()
                 with self._lock:
                     if self._pending:
@@ -1639,6 +2089,19 @@ class Replica:
                 if now >= next_sync:
                     self.sync_to_all()
                     next_sync = now + self.sync_interval
+                if (
+                    self.storage_mode == "interval"
+                    and self.storage_module is not None
+                    and now >= next_ckpt
+                ):
+                    self.checkpoint()
+                    next_ckpt = now + self.checkpoint_interval
+                with self._lock:
+                    # interval-mode fsyncs reach disk even when the
+                    # replica goes idle right after a commit (the WAL is
+                    # lock-serialised state; crash/stop close it)
+                    if self._wal is not None:
+                        self._wal.maybe_sync()
                 self._wake.wait(timeout=max(0.0, min(next_sync - time.monotonic(), 0.05)))
                 self._wake.clear()
 
@@ -1646,8 +2109,31 @@ class Replica:
         self._thread.start()
         return self
 
+    def crash(self) -> None:
+        """Fault injection: die WITHOUT the terminate-path goodbye sync
+        (the reference's tests kill the owning process,
+        ``causal_crdt_test.exs:87-102``): the loop stops mid-flight,
+        nothing is flushed or synced beyond what ``storage_mode`` and
+        the WAL's fsync cadence already persisted, and deregistration
+        fires ``Down`` at monitoring peers. A later ``start_link`` with
+        the same name and storage recovers with the node id kept."""
+        if self._thread is not None:
+            self._stop.set()
+            self._wake.set()
+            self._thread.join(timeout=30)
+            self._thread = None
+        with self._lock:
+            # under the lock: a concurrent mutate mid-append must not
+            # race the close
+            if self._wal is not None:
+                # a crash drops whatever the fsync cadence had not yet
+                # committed — the durability contract under test
+                self._wal.close(flush=False)
+        self.transport.unregister(self.name)
+
     def stop(self) -> None:
-        """Terminate: best-effort final sync, then deregister (fires
+        """Terminate: best-effort final sync, an interval-mode
+        checkpoint, the WAL's final flush, then deregister (fires
         ``Down`` at monitoring peers)."""
         if self._thread is not None:
             self._stop.set()
@@ -1658,4 +2144,9 @@ class Replica:
             self.sync_to_all()
         except Exception:  # best-effort, like the reference's terminate path
             logger.debug("final sync on terminate failed", exc_info=True)
+        if self.storage_mode == "interval" and self.storage_module is not None:
+            self.checkpoint()
+        with self._lock:
+            if self._wal is not None:
+                self._wal.close(flush=True)
         self.transport.unregister(self.name)

@@ -3,9 +3,10 @@
 The reference fires ``[:delta_crdt, :sync, :done]`` with
 ``%{keys_updated_count: n}`` and ``%{name: name}`` on **every** merge —
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
-contract here, plus the capacity-growth, sync-round, ingress-coalescing
-and fleet dispatch/egress events, under the same attach/execute API.
-The events of later slices (WAL, serving, …) come with them.
+contract here, plus the capacity-growth, sync-round, ingress-coalescing,
+WAL, fleet dispatch/egress and fault-trip events, under the same
+attach/execute API. The events of later slices (serving, …) come with
+them.
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
 (the port imports nothing of the JAX package).
@@ -21,8 +22,12 @@ SYNC_DONE = ("delta_crdt", "sync", "done")  # measurements: keys_updated_count
 CAPACITY_GROWN = ("delta_crdt", "capacity", "grown")  # measurements: capacity, replica_capacity
 SYNC_ROUND = ("delta_crdt", "sync", "round")  # measurements: duration_s, buckets, entries; metadata: name, plane
 INGEST_COALESCE = ("delta_crdt", "ingest", "coalesce")  # measurements: depth, rows, entries, duration_s; metadata: name
+WAL_APPEND = ("delta_crdt", "wal", "append")  # measurements: bytes, records, duration_s
+WAL_COMPACT = ("delta_crdt", "wal", "compact")  # measurements: segments_deleted, bytes_reclaimed, duration_s
+WAL_RECOVER = ("delta_crdt", "wal", "recover")  # measurements: records, bytes, duration_s
 FLEET_DISPATCH = ("delta_crdt", "fleet", "dispatch")  # measurements: replicas, lanes, messages, rows, padded_rows, duration_s; metadata: fleet
 FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_batched, jobs_solo, dispatches, duration_s; metadata: fleet
+FAULT_TRIP = ("delta_crdt", "fault", "trip")  # measurements: trips (per trip); metadata: site
 
 _lock = threading.Lock()
 #: event -> handler tuple. Handler tables are REPLACED, never mutated
