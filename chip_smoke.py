@@ -2,10 +2,11 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-8
-    python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a and 8b at a cut key count
+    python3 chip_smoke.py                 # the full run: phases 1-9
+    python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a and 9b at a cut key count
     python3 chip_smoke.py --only 7        # the build and phase 7 alone (no result lines)
     python3 chip_smoke.py --only 8        # the build and phase 8 alone (no result lines)
+    python3 chip_smoke.py --only 9        # the build and phase 9 alone (no result lines)
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -108,16 +109,55 @@ Phases (each raises on failure; any failure exits nonzero):
    the WAL, the append ms (median, p99), WAL and snapshot bytes, the
    compaction ms, the recovery seconds (the restart's wall time, and
    the ``WAL_RECOVER`` event's span from reading the log to the end of
-   the replay), the records replayed, the catch-up seconds, the post-recovery
-   propagation ms and the peak memory. 8b the same on
+   the replay), the records replayed, the catch-up seconds with each
+   restarted replica's ``stats()["catchup"]`` (the replicas run the
+   default ``log_shipping=True``), the post-recovery propagation ms and
+   the peak memory. 8b the same on
    the hash store at 2^17 keys with diff subscribers (a snapshot every
    128 records), the probe kernel's launches before the crash, during
-   the recovery and after it (``read_keys`` on the recovered tables);
+   the recovery and after it (``read_keys`` on the recovered tables),
+   then the kernel held bit-equal to its plain version on both
+   recovered tables at every Q the leg launched it at;
    8c phase 7a's ingress rounds into a 256-member binned fleet without
    and with a WAL per member, then every member crashed and recovered
    solo with equal canonical bytes. 8d runs in phase 4: a seeded
    ``SimNetwork`` (drops, duplicates, reordering) on three replicas per
-   store, identical on cuda and cpu.
+   store, identical on cuda and cpu;
+9. the TCP path: two ``TcpTransport``s on 127.0.0.1 in this process,
+   each replica registered on its own and addressing its peer as
+   ``(name, (host, port))``. 9a two threaded default-store replicas
+   with phase 3b's geometry at 2^20 keys (2^18 only when the run would
+   otherwise pass ``RUN_GUARD_S``; the cut is logged on the phase's
+   line), a WAL each with the JAX package's defaults: the load on
+   replica 1 in 1024-op batches converges over TCP, replica 2 takes a
+   compaction checkpoint once its watermark reaches replica 1's seq and
+   crashes (its node's transport stays up, so replica 1's pushes are
+   lost in flight), 2^16 keys are written on replica 1, replica 2
+   restarts from its ``wal_dir`` and catches up by log shipping.
+   ``[tcp]`` lines give the load and convergence seconds, the wire
+   (``transport_stats()``: bytes and frames by kind, ``_MSGB`` buffers
+   raw against zlib), the restart and catch-up seconds, both replicas'
+   ``stats()["catchup"]``, and 10 propagation ms with replica 2's
+   mailbox before each; a ``[tcp-codec]`` line times the encoding of
+   one 1024-row entries frame of the loaded map with the payload dicts
+   C-pickled and spliced in and with the pure-Python pickler alone.
+   Correct: equal canonical bytes, replica 2's ``read()`` equal to the
+   written map, at least one chunk applied, state on the card, no
+   kernel launched. 9b the same on the hash
+   store at 2^17 keys with an ``on_diffs`` feed on each side (so the
+   probe kernel runs on the TCP path; its launches by (H, W, Q) join
+   the kernel line), 2^13 keys written while replica 2 is down; the
+   feed must equal the written map, and the kernel must be bit-equal
+   to its plain version on both final tables at every Q the leg
+   launched it at (its error joins the kernel line's). 9c fleet
+   frames: a 64-member binned fleet on transport A whose members each
+   sync with one member of a 64-member fleet on transport B (phase 7's
+   member shape), 1 warm-up + 5 timed rounds of 4 fresh keys a member and one ``sync_tick()`` a
+   fleet; solo twins run the same rounds on their own transport pair.
+   It prints member syncs/s and (frames, frame_members) a tick, times
+   the codec on fleet A's last frame as 9a's line does, and raises
+   unless every tick shipped one frame to the one endpoint and
+   every member converged with its peer and equals its twin.
 
 Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
@@ -551,42 +591,54 @@ class DiffLog:
             time.sleep(0.005)
 
 
-def check_main_tables(reps, n_keys: int, removed: list) -> int:
+def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_sizes=()) -> int:
     """The probe kernel against ``probe_lookup_ref`` on each replica's
-    own final table: queries are every written key (removed ones
-    included) and 4096 missing keys; the whole grid must be bit-equal
-    and find exactly the keys still present. Returns the max abs error."""
+    own final table: queries are every written key (``key0``… and
+    ``extra``, removed ones included) and 4096 missing keys; the whole
+    grid must be bit-equal and find exactly the keys still present.
+    Then, at each Q in ``q_sizes`` (the Q a path launched the kernel
+    at), Q queries, three quarters written keys and a quarter missing
+    ones, must be bit-equal too. Returns the max abs error."""
     import torch
 
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
     from delta_crdt_ex_tpu_torch.utils.hashing import key_hash64_batch
 
-    written = np.asarray(key_hash64_batch([f"key{i}" for i in range(n_keys)]), np.uint64)
+    terms = [f"key{i}" for i in range(n_keys)] + list(extra)
+    written = np.asarray(key_hash64_batch(terms), np.uint64)
     miss = np.random.default_rng(17).integers(0, 2**63, 4096, dtype=np.int64).view(np.uint64) | np.uint64(1 << 63)
-    hashes = np.concatenate([written, miss]).view(np.int64)
+    grids = [np.concatenate([written, miss]).view(np.int64)]
+    for q in q_sizes:
+        n_miss = min(q // 4, len(miss))
+        grids.append(np.concatenate([written[: q - n_miss], miss[:n_miss]]).view(np.int64))
     max_err = 0
     for r in reps:
         with r._lock:
             st = r.state
-        qk = torch.from_numpy(hashes.copy()).to(st.key.device)
-        got = probe_lookup_kernel(qk, st)
-        want = ref_chunked(qk, st)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        max_err = max(max_err, err)
-        found = int(want[:n_keys, 0].sum()), int(want[n_keys:, 0].sum())
+        for g, hashes in enumerate(grids):
+            qk = torch.from_numpy(hashes.copy()).to(st.key.device)
+            # (a rehearsal on the CPU has no kernel: it checks the grids)
+            got = probe_lookup_kernel(qk, st) if qk.is_cuda else ref_chunked(qk, st)
+            want = ref_chunked(qk, st)
+            if qk.is_cuda:
+                torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            max_err = max(max_err, err)
+            if err != 0:
+                bad = torch.nonzero((got != want).any(dim=1))[:4, 0]
+                raise AssertionError(
+                    f"{r.name}: probe kernel disagrees with probe_lookup_ref on the main "
+                    f"path's table at Q={len(hashes)}: rows {bad.tolist()}: kernel {got[bad].tolist()} "
+                    f"plain {want[bad].tolist()}"
+                )
+            if g:
+                continue
+            found = int(want[: len(terms), 0].sum()), int(want[len(terms):, 0].sum())
+            if found != (len(terms) - len(removed), 0):
+                raise AssertionError(f"{r.name}: probe grid found {found}, want ({len(terms) - len(removed)}, 0)")
         log(f"[slice] {r.name}: kernel vs plain on the main path's table (H={st.table_size} "
-            f"W={st.probe_window} Q={len(hashes)}): found {found[0]} written + {found[1]} "
-            f"missing, max_abs_err {err}")
-        if err != 0:
-            bad = torch.nonzero((got != want).any(dim=1))[:4, 0]
-            raise AssertionError(
-                f"{r.name}: probe kernel disagrees with probe_lookup_ref on the main "
-                f"path's table: rows {bad.tolist()}: kernel {got[bad].tolist()} "
-                f"plain {want[bad].tolist()}"
-            )
-        if found != (n_keys - len(removed), 0):
-            raise AssertionError(f"{r.name}: probe grid found {found}, want ({n_keys - len(removed)}, 0)")
+            f"W={st.probe_window}) at Q={[len(h) for h in grids]}: bit-equal, the first grid found "
+            f"{found[0]} written + {found[1]} missing, max_abs_err 0")
     return max_err
 
 
@@ -717,13 +769,6 @@ class SyncDoneCount:
             time.sleep(0.002)
 
 
-def mailbox_depth(transport, addr) -> int:
-    """Messages queued for ``addr`` on a ``LocalTransport``."""
-    with transport._lock:
-        mb = transport._mailboxes.get(addr)
-    return mb.qsize() if mb is not None else 0
-
-
 def timed_propagations(r1, r2, transport, arrivals, deadline: float, key) -> dict:
     """10 single-op writes on ``r1``, each timed to its arrival at ``r2``
     (``SYNC_DONE``), with ``r2``'s mailbox depth before each write and
@@ -733,7 +778,7 @@ def timed_propagations(r1, r2, transport, arrivals, deadline: float, key) -> dic
 
     lat, queued, handled = [], [], []
     for i in range(10):
-        queued.append(mailbox_depth(transport, r2.addr))
+        queued.append(transport.queue_depth(r2.addr))
         # stats() may wait for r2's lock while a merge finishes: read it
         # before the arrival base, so no merge lands between the two
         h0 = r2.stats()["ingress"]["messages"]
@@ -1993,6 +2038,9 @@ def durability_leg(tag: str, store, n_keys: int, device_name: str, device: str =
             time.sleep(0.2)
         settle(reborn, "after the recovery")
         m["catch_up_s"] = time.perf_counter() - t0
+        m["catchup"] = {r.name: r.stats()["catchup"] for r in reborn}
+        log(f"[durability] {leg}: log-shipping catch-up after the restart (log_shipping={r1.log_shipping}): "
+            f"{json.dumps(m['catchup'])}")
         # counter continuity: fresh keys are new dots in buckets the
         # peer's context already covers, so a re-minted counter would be
         # dropped there
@@ -2005,6 +2053,14 @@ def durability_leg(tag: str, store, n_keys: int, device_name: str, device: str =
                 raise AssertionError(f"{leg}: {r.name}: read_keys after recovery differs from the written map")
         m["launches_after_recovery"] = launches()
         m["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+        if store == "hash":
+            # launches below compare the kernel with its plain version on
+            # the recovered tables, at every Q this leg launched at; they
+            # are not the path's
+            qs = {int(k.split("x")[2]) for w in ("launches_before_crash", "launches_during_recovery",
+                                                 "launches_after_recovery") for k in m[w]["probe_by_shape"]}
+            m["table_max_abs_err"] = check_main_tables(
+                reborn, n_keys, [], extra=[f"post{i}" for i in range(10)], q_sizes=sorted(qs))
         log(f"[durability] {leg}: the pair caught up to equal canonical bytes {m['catch_up_s']:.3f} s after "
             f"the recovery; then 10 single-op propagations (ms): "
             f"{[round(x, 3) for x in m['propagation_ms']]} median {float(np.median(m['propagation_ms'])):.3f}; "
@@ -2155,6 +2211,392 @@ def phase_durability(device_name: str, keys: int = DURABILITY_KEYS, hash_keys: i
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the TCP path
+
+#: 9a's key count (the north star, ``SURVEY.md:282``) and the cut it
+#: takes only when the clock demands it; 9b's (phase 3's); the keys
+#: written on replica 1 while replica 2 is down; 9c's fleet size
+TCP_KEYS = 1 << 20
+TCP_CUT_KEYS = 1 << 18
+TCP_HASH_KEYS = 1 << 17
+TCP_DOWN_KEYS = 1 << 16
+TCP_FLEET_N = 64
+#: seconds phase 9 needs after phase 8 with 9a cut to 2^18 keys (what
+#: phase 7's guard keeps free for it), and 9a's seconds at 2^20 keys
+#: beyond its seconds at 2^18 (the cut's test). On an H100 at 700 W
+#: (``PERF.md`` §6) phase 9 took 177.074 s with 9a at 2^20 taking
+#: 126.832 s, and 9a took 27.294 s at 2^18: about 77 s and 100 s (the
+#: guard's 200 s below the run's limit covers a slower host)
+TCP_RESERVE_S = 150.0
+TCP_FULL_9A_EXTRA_S = 100.0
+
+
+def codec_times(obj, reps: int = 3) -> dict:
+    """Milliseconds to encode ``obj`` (a ``(name, message)`` frame body)
+    as a ``_MSGB`` frame, with the large plain containers (payload
+    dicts) C-pickled and spliced into the envelope (median of ``reps``)
+    and with the splice off (the pure-Python pickler writes the whole
+    envelope; once, as it takes seconds on a large frame); the frame's
+    bytes each way, and the port's decode ms."""
+    from delta_crdt_ex_tpu_torch.runtime import tcp_transport as tt
+
+    out: dict = {}
+    splice_min = tt._SPLICE_MIN
+    try:
+        for mode, smin, n in (("splice", splice_min, reps), ("no_splice", float("inf"), 1)):
+            tt._SPLICE_MIN = smin
+            dts = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                frame = tt._encode_msgb(obj)
+                dts.append(time.perf_counter() - t0)
+            out[f"{mode}_encode_ms"] = float(np.median(dts)) * 1e3
+            out[f"{mode}_bytes"] = len(frame)
+    finally:
+        tt._SPLICE_MIN = splice_min
+    t0 = time.perf_counter()
+    tt._decode_msgb(frame)
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def tcp_leg(tag: str, store, n_keys: int, device_name: str, device: str = "cuda",
+            subscribers: bool = False, down_keys: int = TCP_DOWN_KEYS, cut_note: str = "") -> dict:
+    """Two threaded replicas, each on its own ``TcpTransport`` on
+    127.0.0.1 and addressing its peer as ``(name, (host, port))``, each
+    with a ``wal_dir`` and the JAX package's WAL defaults, at the port's
+    default ``log_shipping=True`` (phase 3b's geometry: sync_interval 20
+    ms, max_sync_size 500). ``n_keys`` keys load on replica 1 in 1024-op
+    batches and converge over TCP; replica 2 takes a compaction
+    checkpoint once its applied watermark reaches replica 1's seq (the
+    snapshot a periodic compaction leaves), then crashes: its node's
+    transport stays up, so what replica 1 pushes meanwhile is lost in
+    flight, as to a crash the sender has not yet noticed. ``down_keys``
+    more keys are written on replica 1; replica 2 restarts from its
+    ``wal_dir`` and catches up by log shipping (``GetLogMsg`` /
+    ``LogChunkMsg``). Correct: equal canonical bytes, replica 2's
+    ``read()`` (and its diff feed, with subscribers) equal to the written
+    map, at least one chunk applied, state on the card."""
+    import shutil
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root = WAL_ROOT / tag
+    shutil.rmtree(root, ignore_errors=True)
+    leg = f"{tag} ({store or 'binned'}, {n_keys} keys{cut_note})"
+    arrivals = SyncDoneCount(f"{tag}2")
+    telemetry.attach(telemetry.SYNC_DONE, arrivals)
+    logs = (DiffLog(), DiffLog()) if subscribers else (None, None)
+    opts = lambda i, t: dict(
+        name=f"{tag}{i + 1}", store=store, transport=t, sync_interval=0.02, max_sync_size=500,
+        capacity=2 * n_keys, device=device, wal_dir=str(root / f"r{i + 1}"), fsync_mode=WAL_FSYNC_MODE,
+        segment_bytes=WAL_SEGMENT_BYTES, on_diffs=logs[i],
+    )
+    ta, tb = dc.TcpTransport("127.0.0.1"), dc.TcpTransport("127.0.0.1")
+    reps: list = []
+    m: dict = {"keys": n_keys, "store": store or "binned", "down_keys": down_keys, "cut": bool(cut_note)}
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    try:
+        probe_lookup_kernel.reset()  # this path's run starts here
+        batched_roots_kernel.reset()
+        r1, r2 = dc.start_link(dc.AWLWWMap, **opts(0, ta)), dc.start_link(dc.AWLWWMap, **opts(1, tb))
+        reps += [r1, r2]
+        if not (r1.log_shipping and r2.log_shipping):
+            raise AssertionError(f"{leg}: log shipping is not the default")
+        dc.set_neighbours(r1, [tb.remote_addr(r2.name)])
+        dc.set_neighbours(r2, [ta.remote_addr(r1.name)])
+
+        def settle(what: str) -> bytes:
+            while True:
+                c = [r.canonical_state_bytes() for r in (r1, r2)]
+                if c[0] == c[1]:
+                    return c[0]
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"{leg}: {what}: replicas did not converge to equal canonical bytes")
+                time.sleep(0.1)
+
+        def wait_keys(n: int, what: str) -> float:
+            if subscribers:
+                logs[1].wait(lambda d: len(d.view) >= n, deadline, what)
+                return time.perf_counter()
+            return arrivals.wait(n, deadline, what)
+
+        t0 = time.perf_counter()
+        dc.mutate_batch(r1, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=SLICE_BUDGET_S)
+        m["load_s"] = time.perf_counter() - t0
+        m["converge_s"] = wait_keys(n_keys, f"{n_keys} keys on replica 2") - t0
+        settle("after the load")
+        m["settle_s"] = time.perf_counter() - t0
+        m["wire_after_load"] = {"replica1": ta.transport_stats(), "replica2": tb.transport_stats()}
+        log(f"[tcp] {leg}: load {m['load_s']:.3f} s; on replica 2 after {m['converge_s']:.3f} s, equal canonical "
+            f"bytes after {m['settle_s']:.3f} s; wire from replica 1 {json.dumps(m['wire_after_load']['replica1'])} "
+            f"on {device_name}")
+        # the wire codec on the leg's own frame shape: one 1024-row
+        # entries slice of the loaded map, as a walk or a chunk ships it
+        with r1._lock:
+            rows = np.arange(min(1024, r1.num_buckets), dtype=np.int64)
+            arrays, payloads = r1._extract_rows_wire(rows)
+        to = tb.remote_addr(r2.name)
+        m["codec"] = codec_times((to[0], sync_proto.EntriesMsg(
+            originator=r1.addr, frm=r1.addr, to=to, buckets=rows, arrays=arrays, payloads=payloads)))
+        m["codec"]["entries"] = len(payloads)
+        log(f"[tcp-codec] {leg}: one {len(rows)}-row entries frame ({len(payloads)} entries): "
+            f"{json.dumps(m['codec'])} on {device_name}")
+
+        # the compaction point: replica 2's snapshot carries its watermark
+        # of replica 1's history once a walk equality proved it
+        while True:
+            with r2._lock:
+                wm = r2._applied_seq.get(r1.addr, 0)
+            if wm >= r1._seq:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{leg}: replica 2's watermark stayed at {wm} < {r1._seq}")
+            time.sleep(0.05)
+        r2.checkpoint()
+        m["watermark_at_crash"] = wm
+        r2.crash()
+        sync()
+        t0 = time.perf_counter()
+        dc.mutate_batch(r1, "add", [[f"down{i}", i] for i in range(down_keys)], timeout=SLICE_BUDGET_S)
+        m["down_write_s"] = time.perf_counter() - t0
+        time.sleep(0.5)  # replica 1's loop pushes and opens walks toward the dead replica: lost
+        t0 = time.perf_counter()
+        r2 = dc.start_link(dc.AWLWWMap, **opts(1, tb))
+        sync()
+        m["recover_s"] = time.perf_counter() - t0
+        reps.append(r2)
+        t0 = time.perf_counter()
+        dc.set_neighbours(r2, [ta.remote_addr(r1.name)])
+        want = {f"key{i}": i for i in range(n_keys)} | {f"down{i}": i for i in range(down_keys)}
+        sample = [f"down{i}" for i in range(0, down_keys, max(1, down_keys // 4096))]
+        while dc.read_keys(r2, sample) != {k: want[k] for k in sample}:
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"{leg}: replica 2 did not catch up after the restart")
+            time.sleep(0.1)
+        settle("after the restart")
+        m["catch_up_s"] = time.perf_counter() - t0
+        m["catchup_replica2"] = r2.stats()["catchup"]
+        m["catchup_replica1"] = r1.stats()["catchup"]
+        if m["catchup_replica2"]["chunks_applied"] < 1:
+            raise AssertionError(f"{leg}: replica 2 caught up without a log-shipped chunk: {m['catchup_replica2']}")
+        log(f"[tcp] {leg}: replica 2 crashed with watermark {wm}, {down_keys} keys written meanwhile in "
+            f"{m['down_write_s']:.3f} s; restart {m['recover_s']:.3f} s; caught up to equal canonical bytes "
+            f"{m['catch_up_s']:.3f} s after the restart; catch-up on replica 2 "
+            f"{json.dumps(m['catchup_replica2'])}, served by replica 1 {json.dumps(m['catchup_replica1'])} "
+            f"on {device_name}")
+
+        m.update(timed_propagations(r1, r2, tb, arrivals, deadline, lambda i: f"post{i}"))
+        want.update({f"post{i}": i for i in range(10)})
+        settle("after the post-restart writes")
+        t0 = time.perf_counter()
+        got = r2.read()
+        m["read_ms"] = (time.perf_counter() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"{leg}: replica 2's read() differs from the written map")
+        if subscribers and logs[1].view != want:
+            raise AssertionError(f"{leg}: replica 2's diff feed differs from the written map")
+        check_on_card([r1, r2], device)
+        m["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                         batched_roots_kernel.name: batched_roots_kernel.launches}
+        m["probe_by_shape"] = probe_shape_launches()
+        m["wire"] = {"replica1": ta.transport_stats(), "replica2": tb.transport_stats()}
+        if store == "hash":
+            # launches below compare the kernel with its plain version on
+            # both final tables, at every Q this leg launched at; they are
+            # not the path's
+            m["table_max_abs_err"] = check_main_tables(
+                [r1, r2], n_keys, [], extra=[f"down{i}" for i in range(down_keys)] + [f"post{i}" for i in range(10)],
+                q_sizes=sorted({int(k.split("x")[2]) for k in m["probe_by_shape"]}))
+        log(f"[tcp] {leg}: then 10 single-op propagations (ms) {[round(x, 3) for x in m['propagation_ms']]} "
+            f"median {float(np.median(m['propagation_ms'])):.3f}; replica 2's mailbox before each "
+            f"{m['queued_before']}, messages it handled until each arrived {m['handled_during']}; read() "
+            f"{'and the diff feed ' if subscribers else ''}equal to the written map ({len(want)} keys, read "
+            f"{m['read_ms']:.3f} ms); state on {device}; kernel launches {m['launches']}, probe by HxWxQ "
+            f"{m['probe_by_shape']}; wire in all {json.dumps(m['wire'])} on {device_name}")
+        return m
+    finally:
+        telemetry.detach(telemetry.SYNC_DONE, arrivals)
+        for r in reps:
+            r.crash()
+        ta.close()
+        tb.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tcp_fleets(n: int, device_name: str, device: str = "cuda") -> dict:
+    """Fleet frames over TCP: a binned fleet of ``n`` members on
+    transport A and its ring peers, a fleet of ``n`` on transport B
+    (member i of A ↔ member i of B), phase 7's member shape (64 buckets,
+    capacity 1024, 4 fresh keys a member a round, 1 warm-up + 5 timed
+    rounds); each fleet's sync tick ships one ``FleetFrameMsg`` per peer
+    endpoint. Solo twins (the same node ids, clock and writes, no fleet)
+    run the same rounds on their own transport pair; at the end every
+    member pair and every twin pair has converged and every member
+    equals its twin (canonical bytes and read)."""
+    import gc
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+
+    gc.collect()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    leg = f"fleet frames binned N={n}"
+    probe_lookup_kernel.reset()
+    batched_roots_kernel.reset()
+    ts = [dc.TcpTransport("127.0.0.1") for _ in range(4)]  # fleet A, fleet B, twins A, twins B
+    clocks = (LogicalClock(), LogicalClock())
+    mk = lambda t, clock, name, node: dc.start_link(
+        dc.AWLWWMap, threaded=False, transport=t, clock=clock, capacity=(1 << FLEET_DEPTH) * 16,
+        tree_depth=FLEET_DEPTH, sync_timeout=0.2, device=device, name=name, node_id=node,
+    )
+    groups = [[mk(ts[g], clocks[g // 2], f"tf{'ab'[g % 2]}{'ft'[g // 2]}{i}", 20_000 + 1000 * (g % 2) + i)
+               for i in range(n)] for g in range(4)]
+    fa, fb = dc.Fleet(groups[0]), dc.Fleet(groups[1])
+    sa, sb = groups[2], groups[3]
+    out: dict = {"replicas": n}
+    shipped: list = []  # fleet A's frames, kept to time the codec on one
+    send_frame = ts[0].send_fleet_frame
+    ts[0].send_fleet_frame = lambda ep, entries: shipped.append((ep, list(entries))) or send_frame(ep, entries)
+    try:
+        for a_side, b_side, ta_, tb_ in ((groups[0], groups[1], ts[0], ts[1]), (sa, sb, ts[2], ts[3])):
+            for i in range(n):
+                a_side[i].set_neighbours([tb_.remote_addr(b_side[i].name)])
+                b_side[i].set_neighbours([ta_.remote_addr(a_side[i].name)])
+        # the fleet-frame capability is negotiated by HELLO on each
+        # pooled connection: wait for it before the timed rounds
+        t_end = time.perf_counter() + 10
+        while not all(ts[i].fleet_sink(("x", ts[1 - i].endpoint)) for i in (0, 1)):
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"{leg}: fleet frames were never negotiated")
+            time.sleep(0.01)
+
+        def settle() -> None:
+            for f in (fa, fb):
+                f.drain()
+            for t in ts[2:]:
+                t.pump()
+
+        dts: dict = {"fleet": [], "solo": []}
+        per_tick = []
+        for rnd in range(FLEET_ROUNDS + 1):  # round 0 warms up
+            base = 1_000_003 * rnd
+            for g in range(4):
+                for i, r in enumerate(groups[g]):
+                    k0 = base + (g % 2) * 500_000 + i * 1000
+                    r.mutate_batch("add", [[k0 + j, k0 + j] for j in range(FLEET_KEYS_PER_ROUND)])
+            before = fa.stats()["egress"]
+            sync()
+            t1 = time.perf_counter()
+            fa.sync_tick()
+            fb.sync_tick()
+            sync()
+            if rnd:
+                dts["fleet"].append(time.perf_counter() - t1)
+            after = fa.stats()["egress"]
+            per_tick.append((after["frames"] - before["frames"], after["frame_members"] - before["frame_members"]))
+            t1 = time.perf_counter()
+            for r in sa + sb:
+                r.sync_to_all()
+            sync()
+            if rnd:
+                dts["solo"].append(time.perf_counter() - t1)
+            time.sleep(0.05)
+            settle()
+        pairs = list(zip(groups[0], groups[1])) + list(zip(sa, sb))
+        t_end = time.perf_counter() + 120
+        while not all(a.canonical_state_bytes() == b.canonical_state_bytes() for a, b in pairs):
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"{leg}: member pairs did not converge")
+            fa.sync_tick()
+            fb.sync_tick()
+            for r in sa + sb:
+                r.sync_to_all()
+            time.sleep(0.05)
+            settle()
+        for f, twins in ((fa, sa), (fb, sb)):
+            for a, b in zip(f.replicas, twins):
+                if a.canonical_state_bytes() != b.canonical_state_bytes() or a.read() != b.read():
+                    raise AssertionError(f"{leg}: member {a.name} differs from its solo twin {b.name}")
+        check_on_card(groups[0] + groups[1], device)
+        launches = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                    batched_roots_kernel.name: batched_roots_kernel.launches}
+        if any(launches.values()):
+            raise AssertionError(f"{leg}: a kernel was launched on the fleet path: {launches}")
+        if any(f != 1 for f, _ in per_tick):
+            raise AssertionError(f"{leg}: frames per tick {per_tick}, want one per endpoint")
+        med = lambda ds: float(np.median(ds))
+        out.update({
+            "fleet_member_syncs_per_sec": 2 * n / med(dts["fleet"]),
+            "solo_member_syncs_per_sec": 2 * n / med(dts["solo"]),
+            "fleet_tick_ms": [x * 1e3 for x in dts["fleet"]], "solo_loop_ms": [x * 1e3 for x in dts["solo"]],
+            "frames_per_tick": per_tick, "egress_a": fa.stats()["egress"], "egress_b": fb.stats()["egress"],
+            "wire_a": ts[0].transport_stats(), "launches": launches,
+        })
+        out["speedup"] = out["fleet_member_syncs_per_sec"] / out["solo_member_syncs_per_sec"]
+        ep, entries = shipped[-1]
+        out["codec"] = codec_times(sync_proto.FleetFrameMsg(frm=ts[0].endpoint, entries=entries))
+        out["codec"]["members"] = len(entries)
+        log(f"[tcp-codec] {leg}: fleet A's last frame ({len(entries)} member messages): "
+            f"{json.dumps(out['codec'])} on {device_name}")
+        log(f"[tcp] {leg}: fleet {out['fleet_member_syncs_per_sec']:.3f} vs solo "
+            f"{out['solo_member_syncs_per_sec']:.3f} member syncs/s (both fleets' ticks, median of {FLEET_ROUNDS} "
+            f"rounds; speedup {out['speedup']:.3f}); fleet A (frames, frame_members) per tick {per_tick}; every "
+            f"member pair converged over TCP and equals its solo twin; wire from A "
+            f"{json.dumps(out['wire_a'])} on {device_name}")
+        return out
+    finally:
+        for r in groups[0] + groups[1] + sa + sb:
+            r.crash()
+        for t in ts:
+            t.close()
+
+
+def phase_tcp(device_name: str, t_start: float, keys: int = TCP_KEYS, hash_keys: int = TCP_HASH_KEYS,
+              fleet_n: int = TCP_FLEET_N, device: str = "cuda") -> dict:
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    t0 = time.perf_counter()
+    note = ""
+    spent = time.perf_counter() - t_start
+    if keys > TCP_CUT_KEYS and spent + TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S > RUN_GUARD_S:
+        note = f", cut from {keys}: {spent:.3f} s spent when phase 9 began"
+        log(f"[cut] phase 9a keys {keys} -> {TCP_CUT_KEYS}: {spent:.3f} s so far, about "
+            f"{TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S:.0f} s to go at {keys}, past the {RUN_GUARD_S:.0f} s guard")
+        keys = TCP_CUT_KEYS
+    out = {"9a": tcp_leg("tcpb", None, keys, device_name, device, cut_note=note)}
+    out["9a"]["leg_s"] = time.perf_counter() - t0
+    if any(out["9a"]["launches"].values()):
+        raise AssertionError(f"9a: a kernel was launched on the binned TCP path: {out['9a']['launches']}")
+    out["9b"] = tcp_leg("tcph", "hash", hash_keys, device_name, device, subscribers=True,
+                        down_keys=hash_keys // 16)
+    if device == "cuda" and out["9b"]["launches"][probe_lookup_kernel.name] <= 0:
+        raise AssertionError("9b: the probe kernel was not launched on the hash-store TCP path")
+    if out["9b"]["launches"][batched_roots_kernel.name]:
+        raise AssertionError("9b: the roots kernel was launched on the hash-store TCP path")
+    out["9c"] = tcp_fleets(fleet_n, device_name, device)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[tcp] phase 9 {out['phase_s']:.3f} s (9a {out['9a']['leg_s']:.3f} s at {keys} keys); probe launches "
+        f"on the hash leg "
+        f"{out['9b']['launches'][probe_lookup_kernel.name]} by HxWxQ {out['9b']['probe_by_shape']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
@@ -2190,10 +2632,13 @@ def main() -> int:
         if "4" in args.only:
             phase_cuda_vs_cpu()
         if "7" in args.only:
-            reserve = DURABILITY_RESERVE_S if "8" in args.only else 0.0
+            reserve = (DURABILITY_RESERVE_S if "8" in args.only else 0.0) + (
+                TCP_RESERVE_S if "9" in args.only else 0.0)
             log("[fleet-metrics] " + json.dumps(phase_fleet(name_power, t_start, reserve_s=reserve)))
         if "8" in args.only:
             log("[durability-metrics] " + json.dumps(phase_durability(name_power)))
+        if "9" in args.only:
+            log("[tcp-metrics] " + json.dumps(phase_tcp(name_power, t_start, keys=args.keys, hash_keys=args.keys // 8)))
         log(f"[env] total {time.perf_counter() - t_start:.3f} s (phases 1 and {args.only} only)")
         return 0
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
@@ -2226,20 +2671,29 @@ def main() -> int:
     log("[fanin-metrics] " + json.dumps(f))
     log("[gossip-metrics] " + json.dumps(g))
     t_phase = time.perf_counter()
-    fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S)
+    fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S)
     phase_t["7"] = time.perf_counter() - t_phase
     log("[fleet-metrics] " + json.dumps(fl))
     t_phase = time.perf_counter()
     du = phase_durability(name_power, keys=args.keys, hash_keys=args.keys // 8)
     phase_t["8"] = time.perf_counter() - t_phase
     log("[durability-metrics] " + json.dumps(du))
+    t_phase = time.perf_counter()
+    tc = phase_tcp(name_power, t_start, keys=args.keys, hash_keys=args.keys // 8)
+    phase_t["9"] = time.perf_counter() - t_phase
+    log("[tcp-metrics] " + json.dumps(tc))
     fleet_256 = fl.get("ingress_binned_256", {}).get("fleet_merges_per_sec")
     log(f"[durability] beside the runs without a WAL: 8a load_wal_s {du['8a']['load_wal_s']:.3f} s against 3b's "
         f"load_s {b['load_s']:.3f} s; 8c {du['8c']['fleet_wal_merges_per_sec']:.3f} merges/s against 7a's N=256 "
         f"{fleet_256} on {name_power}")
     log("[env] seconds by phase " + json.dumps({k: round(v, 3) for k, v in phase_t.items()}))
+    # each hash-store path's launches were held against the plain
+    # version on its own tables at the Q it launched at
+    probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"])
     probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
-                                 "durability_hash": du["8b"]["probe_launches"]}
+                                 "durability_hash": du["8b"]["probe_launches"],
+                                 "tcp_hash": tc["9b"]["launches"][probe_lookup_kernel.name],
+                                 "tcp_fleet": tc["9c"]["launches"][probe_lookup_kernel.name]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     # the replica paths' launches by the exact shape they ran at, each
     # row's launches and loss from its own shape: the headline rows take
@@ -2249,6 +2703,8 @@ def main() -> int:
     for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
         for k, n in du["8b"][when]["probe_by_shape"].items():
             by_shape[k] = by_shape.get(k, 0) + n
+    for k, n in tc["9b"]["probe_by_shape"].items():
+        by_shape[k] = by_shape.get(k, 0) + n
     head_keys = set()
     for row in probe["shapes"]:
         sh = row["shape"]
@@ -2260,7 +2716,7 @@ def main() -> int:
         raise AssertionError(f"probe launches by shape {by_shape} are not all in the timed rows")
     roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
     roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"],
-                                 "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0}
+                                 "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0}
     roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

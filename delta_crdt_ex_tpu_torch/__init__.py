@@ -19,8 +19,11 @@ merges and sync-tick extractions, on both stores; and durability and
 adversarial delivery — snapshot storage (``MemoryStorage``,
 ``FileStorage``), the write-ahead delta log (``wal_dir=``, ``WalLog``),
 crash recovery with the node id and counters kept, fault points on
-every commit boundary, and the seeded ``SimNetwork``. See
-``ROADMAP.md`` for what comes next.
+every commit boundary, and the seeded ``SimNetwork``; and the cross-host
+``TcpTransport`` on the JAX package's wire, log-shipping catch-up
+(``GetLogMsg``/``LogChunkMsg``, on by default) and fleet frames, so a
+JAX replica and a torch replica run in one cluster. See ``ROADMAP.md``
+for what comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (
@@ -42,6 +45,7 @@ from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 from delta_crdt_ex_tpu_torch.runtime.simnet import SimNetwork
 from delta_crdt_ex_tpu_torch.runtime.storage import FileStorage, MemoryStorage, Storage
+from delta_crdt_ex_tpu_torch.runtime.tcp_transport import TcpTransport
 from delta_crdt_ex_tpu_torch.runtime.wal import WalLog
 
 __version__ = "0.1.0"
@@ -59,6 +63,7 @@ __all__ = [
     "Replica",
     "SimNetwork",
     "Storage",
+    "TcpTransport",
     "WalLog",
     "child_spec",
     "mutate",

@@ -77,7 +77,14 @@ def start_link(
     model's, or ``"hash"``). ``threaded=False`` leaves driving to the
     caller (``sync_to_all()`` + ``transport.pump()``, or
     ``process_pending()`` for coalesced ingress). ``device`` defaults
-    to ``"cuda"``."""
+    to ``"cuda"``. ``transport`` defaults to the process's
+    ``LocalTransport``; pass a
+    :class:`~delta_crdt_ex_tpu_torch.runtime.tcp_transport.TcpTransport`
+    for a cluster across processes or hosts, where neighbours are
+    ``(name, (host, port))`` addresses and JAX-package replicas may
+    join. With a ``wal_dir``, a lagging peer catches up by log shipping
+    (``log_shipping=True``, ``catchup_chunk_rows=1024``,
+    ``catchup_suffix_ratio=4.0``: the JAX package's defaults)."""
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     replica = Replica(_resolve_store(crdt_module, store), **opts)

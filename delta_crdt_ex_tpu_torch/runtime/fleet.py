@@ -38,10 +38,11 @@ the replicas' own plan/emit bookkeeping.
 Not ported yet, each raising ``NotImplementedError`` naming its slice
 (``ROADMAP.md`` queue 1): ``mesh=`` (multi-device mesh); ``obs=``,
 :meth:`Fleet.frontdoor`, :meth:`Fleet.obs_varz` and :meth:`Fleet.health`
-(serving and observability). Fleet frames over TCP come with the TCP
-transport and log shipping slice: the port has only ``LocalTransport``,
-so a sync tick sends directly. Port members have no relay epoch (tree
-gossip), so that step is absent. Members with a ``wal_dir`` log what
+(serving and observability). A sync tick's sends to a peer process
+whose TCP connection negotiated fleet frames aggregate into ONE
+``FleetFrameMsg`` per endpoint (:class:`_FrameCollector`), as in the
+JAX fleet. Port members have no relay epoch (tree gossip), so that step
+is absent. Members with a ``wal_dir`` log what
 the batched merge commits through the solo commit tail, so a crashed
 member recovers as a solo replica.
 """
@@ -69,6 +70,59 @@ _TR_DISPATCH_RESULT = transfers.register("fleet.dispatch_result")
 _TR_DISPATCH_COUNTS = transfers.register("fleet.dispatch_counts")
 _TR_OWN_CTR_COLUMNS = transfers.register("fleet.own_ctr_columns")
 _TR_EGRESS_EXTRACT = transfers.register("fleet.egress_extract")
+
+class _FrameCollector:
+    """Per-transport aggregation of one egress tick's outbound sync
+    messages into fleet-wide wire frames (JAX ``fleet.py:115-171``):
+    sends whose destination endpoint negotiated the ``_FEAT_FLEET``
+    capability buffer as ``(to, msg)`` entries and ship at :meth:`flush`
+    as ONE :class:`~delta_crdt_ex_tpu_torch.runtime.sync.FleetFrameMsg`
+    per endpoint. Everything else (local peers, legacy peers, transports
+    without ``fleet_sink``) passes straight through to the normal send.
+
+    ``send`` returning True means the message is committed to a frame
+    that a live negotiated connection will carry; a drop after that is
+    the lossy-transport case of a per-member send — cursors may run
+    ahead of delivery by one tick and the periodic sync re-covers."""
+
+    __slots__ = ("transport", "_sink_of", "_sinks", "frames", "senders")
+
+    def __init__(self, transport) -> None:
+        self.transport = transport
+        self._sink_of = getattr(transport, "fleet_sink", None)
+        self._sinks: dict = {}  # per-tick memo: destination -> sink|None
+        self.frames: dict = {}  # endpoint -> [(to, msg), ...] send order
+        self.senders: dict = {}  # endpoint -> distinct member addrs
+
+    def send(self, to, msg) -> bool:
+        if self._sink_of is not None:
+            try:
+                sink = self._sinks[to]
+            except KeyError:
+                # memoised per tick: a dead endpoint pays one connect
+                # timeout a tick, not one a message
+                sink = self._sinks[to] = self._sink_of(to)
+            except TypeError:
+                sink = self._sink_of(to)  # unhashable addr: no memo
+            if sink is not None:
+                self.frames.setdefault(sink, []).append((to, msg))
+                self.senders.setdefault(sink, set()).add(getattr(msg, "frm", None))
+                return True
+        return self.transport.send(to, msg)
+
+    def flush(self) -> "tuple[int, int]":
+        """Ship the buffered envelopes; returns ``(frames, member
+        slots)`` — distinct contributing members summed over the frames
+        shipped."""
+        frames = members = 0
+        for sink, entries in self.frames.items():
+            if self.transport.send_fleet_frame(sink, entries):
+                frames += 1
+                members += len(self.senders[sink])
+        self.frames.clear()
+        self.senders.clear()
+        return frames, members
+
 
 #: RowSlice entry columns carried at the dense lane tier (trimmed back
 #: per member on the hash store; the ctx tables are never lane-tiered)
@@ -204,6 +258,8 @@ class Fleet:
         self._egress_solo_members = 0
         self._egress_occupancy: dict[int, int] = {}
         self._egress_tree_batched = 0
+        self._egress_frames = 0
+        self._egress_frame_members = 0
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
@@ -546,13 +602,18 @@ class Fleet:
 
         # phase 3 — per member, under its lock: adopt the batched tree
         # (version-guarded), emit every job through the shared
-        # _emit_push_job tail, open the walk rounds
+        # _emit_push_job tail, open the walk rounds, with sends
+        # aggregating into fleet frames
+        collectors: dict[int, _FrameCollector] = {}
         for ent in staged:
             rep = ent.rep
+            coll = collectors.get(id(rep.transport))
+            if coll is None:
+                coll = collectors[id(rep.transport)] = _FrameCollector(rep.transport)
             with rep._lock:
                 if ent.solo:
-                    rep._push_deltas()
-                    rep._open_walks()
+                    rep._push_deltas(coll.send)
+                    rep._open_walks(coll.send)
                     continue
                 tv = lane_trees.get(id(rep))
                 if tv is not None and rep._tree is None and rep._state_version == tv[2]:
@@ -561,8 +622,15 @@ class Fleet:
                     sl = extracted.get(id(job))
                     if sl is None:
                         sl = rep._extract_push_job(job)
-                    rep._emit_push_job(job, sl)
-                rep._open_walks()
+                    rep._emit_push_job(job, sl, coll.send)
+                rep._open_walks(coll.send)
+
+        # phase 4 — ship the aggregated fleet frames, one per endpoint
+        frames = frame_members = 0
+        for coll in collectors.values():
+            f, m = coll.flush()
+            frames += f
+            frame_members += m
 
         dt = time.perf_counter() - t0
         solo_members = sum(1 for ent in staged if ent.solo)
@@ -577,6 +645,8 @@ class Fleet:
             for k, v in occupancy.items():
                 self._egress_occupancy[k] = self._egress_occupancy.get(k, 0) + v
             self._egress_tree_batched += n_tree_batched
+            self._egress_frames += frames
+            self._egress_frame_members += frame_members
         if telemetry.has_handlers(telemetry.FLEET_EGRESS):
             telemetry.execute(
                 telemetry.FLEET_EGRESS,
@@ -585,6 +655,8 @@ class Fleet:
                     "jobs_batched": n_batched_jobs,
                     "jobs_solo": n_solo_jobs + solo_members,
                     "dispatches": n_dispatch,
+                    "frames": frames,
+                    "frame_members": frame_members,
                     "duration_s": dt,
                 },
                 {"fleet": id(self)},
@@ -753,4 +825,12 @@ class Fleet:
                 round(sum(k * v for k, v in occ.items()) / occ_total, 3) if occ_total else 0.0
             ),
             "trees_batched": self._egress_tree_batched,
+            "frames": self._egress_frames,
+            "frame_members": self._egress_frame_members,
+            "members_per_frame": (
+                round(self._egress_frame_members / self._egress_frames, 3) if self._egress_frames else 0.0
+            ),
+            "frames_per_tick": (
+                round(self._egress_frames / self._egress_ticks, 3) if self._egress_ticks else 0.0
+            ),
         }

@@ -41,15 +41,26 @@ carries, line for line the JAX replica's semantics:
   Snapshots and WAL records hold the JAX package's dtypes and orders,
   so either package recovers what the other wrote.
 
-Log shipping, tree gossip, serving and the observability plane wait for
-later slices: their options raise ``NotImplementedError`` naming the
-slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host
-plane (numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the
-wire stays the JAX package's and every one of them may coalesce.
+- log-shipping catch-up (``log_shipping``, on by default as in the JAX
+  package): per-peer applied watermarks learned from walk equality, a
+  round opener's ``log_horizon`` deciding between the digest walk and a
+  ``GetLogMsg`` / ``LogChunkMsg`` stream of the WAL suffix, chunks
+  merged through the entries path (a chunk slice that changes nothing
+  is not logged: with a WAL on both sides the JAX replica's two streams
+  echo each other, ``ROADMAP.md`` §3.6; a dense suffix fills a chunk to
+  its hard cap); fleet envelopes
+  (``FleetFrameMsg``) handed to a mailbox whole fan out here.
+
+Tree gossip, serving and the observability plane wait for later slices:
+their options raise ``NotImplementedError`` naming the slice
+(:data:`LATER_OPTIONS`). Sync slices always travel on the host plane
+(numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the wire
+stays the JAX package's and every one of them may coalesce.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import secrets
@@ -73,7 +84,12 @@ from delta_crdt_ex_tpu_torch.runtime.storage import (
     name_key,
     require_layout,
 )
-from delta_crdt_ex_tpu_torch.runtime.transport import Down, LocalTransport, default_transport
+from delta_crdt_ex_tpu_torch.runtime.transport import (
+    Down,
+    LocalTransport,
+    default_transport,
+    forward_fleet_entries,
+)
 from delta_crdt_ex_tpu_torch.runtime.wal import ReplayClock, WalLog
 from delta_crdt_ex_tpu_torch.utils import transfers
 from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
@@ -105,15 +121,13 @@ _TR_SLICE_WIRE = transfers.register("replica.slice_wire")
 _TR_WAL_ENTRIES = transfers.register("replica.wal_entries")
 _TR_GC_SCAN = transfers.register("replica.gc_scan")
 _TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
+_TR_SAME_STATE = transfers.register("replica.same_state")
 
 #: JAX-replica options this port does not implement yet → the later
 #: slice that brings them (``ROADMAP.md`` queue 1) and the value that
 #: leaves the feature off (passing that value is accepted; ``...`` =
 #: the option only tunes an unported feature, so any value raises)
 LATER_OPTIONS = {
-    "log_shipping": ("TCP transport and log shipping", False),
-    "catchup_chunk_rows": ("TCP transport and log shipping", ...),
-    "catchup_suffix_ratio": ("TCP transport and log shipping", ...),
     "tree_gossip": ("tree gossip", False),
     "tree_fanout": ("tree gossip", ...),
     "tree_seed": ("tree gossip", ...),
@@ -142,6 +156,23 @@ def _pow2(n: int, floor: int = 8) -> int:
 
 def _wire(n: int, floor: int = 8) -> int:
     return pow4_tier(n, floor)
+
+
+def _same_state(a, b) -> bool:
+    """Whether two states of one store hold equal columns (one device
+    read for all of them)."""
+    if a is b:
+        return True
+    pairs = [(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)]
+    if any(x.shape != y.shape if torch.is_tensor(x) else x != y for x, y in pairs):
+        return False
+    diff = [torch.ne(x, y).any() for x, y in pairs if torch.is_tensor(x) and x is not y]
+    return not diff or not bool(_TR_SAME_STATE.get(torch.stack(diff).any()))
+
+
+def _slices_nbytes(slices: list) -> int:
+    """Array bytes of a chunk's entry slices (the catch-up byte count)."""
+    return sum(int(v.nbytes) for s in slices for v in s["arrays"].values() if hasattr(v, "nbytes"))
 
 
 def resolve_device(device) -> torch.device:
@@ -279,6 +310,9 @@ class Replica:
         ingress_batch: int = 256,
         membership_compaction: bool = True,
         membership_retain: int | None = None,
+        log_shipping: bool = True,
+        catchup_chunk_rows: int = 1024,
+        catchup_suffix_ratio: float = 4.0,
         gc_interval_ops: int = 4096,
         device="cuda",
         **later,
@@ -407,9 +441,35 @@ class Replica:
         )
         self._ack_seq: dict[Any, int] = {}
         self._sync_open_seq: dict[Any, int] = {}
-        #: per-peer applied watermarks: kept in snapshots for the
-        #: log-shipping slice; always empty here
+        #: log-shipping catch-up: a rejoining or lagging peer's
+        #: divergence is the suffix of the originator's delta log past
+        #: the peer's last fully observed seq, so catch-up requests WAL
+        #: record ranges (``GetLogMsg``) and merges the shipped row
+        #: slices instead of walking the digest tree. ``_applied_seq``
+        #: is this replica's watermark of each PEER's history (learned
+        #: from walk equality on round openers, advanced by applied
+        #: chunks, kept in snapshots); ``_catchup`` tracks the one
+        #: in-flight request per peer (requester-paced: the server
+        #: stays stateless)
+        self.log_shipping = bool(log_shipping)
+        self.catchup_chunk_rows = int(catchup_chunk_rows)
+        #: past the horizon, stream the clamped suffix only when it is at
+        #: least this many times the walk-bound prefix
+        self.catchup_suffix_ratio = float(catchup_suffix_ratio)
         self._applied_seq: dict[Any, int] = {}
+        self._catchup: dict[Any, dict] = {}
+        #: per-peer "walk first" floor: a horizon-marked chunk said the
+        #: span through that seq is unservable by the peer's log, so
+        #: openers take the classic walk until our watermark passes it
+        self._catchup_walk_floor: dict[Any, int] = {}
+        self._catchup_chunks_served = 0
+        self._catchup_chunks_applied = 0
+        self._catchup_bytes_shipped = 0
+        self._catchup_lanes_shipped = 0
+        self._catchup_entries_shipped = 0
+        self._catchup_rows_applied = 0
+        self._catchup_horizon_fallbacks = 0
+        self._catchup_last_duration = 0.0
         self._tree: _LazyLevels | None = None
         #: full-read result cache, maintained incrementally by local
         #: flushes while complete; ``_read_cache_kh`` maps each cached
@@ -865,6 +925,7 @@ class Replica:
             # removed peers stop gating WAL segment reclaim immediately
             self._ack_seq = {a: s for a, s in self._ack_seq.items() if a in addrs}
             self._sync_open_seq = {a: s for a, s in self._sync_open_seq.items() if a in addrs}
+            self._catchup = {a: s for a, s in self._catchup.items() if a in addrs}
             self.sync_to_all()
 
     # ------------------------------------------------------------------
@@ -1344,16 +1405,18 @@ class Replica:
             self._push_deltas()
             self._open_walks()
 
-    def _open_walks(self) -> None:
+    def _open_walks(self, send=None) -> None:
         """Open digest-walk rounds toward every monitored neighbour — the
         tail of :meth:`sync_to_all`, shared with the fleet's batched
-        sync tick. Caller holds the lock."""
+        sync tick (whose ``send`` aggregates fleet frames). Caller holds
+        the lock."""
         for n in list(self._monitors):
             if n != self.addr:
-                self._open_walk(n)
+                self._open_walk(n, send)
 
-    def _open_walk(self, n) -> bool:
-        """Open one digest-walk round toward ``n`` (≤ 1 in flight)."""
+    def _open_walk(self, n, send=None) -> bool:
+        """Open one digest-walk round toward ``n`` (≤ 1 in flight); also
+        the log-shipping horizon fallback's fresh walk."""
         now = time.monotonic()
         expiry = self._outstanding.get(n)
         if expiry is not None and now < expiry:
@@ -1361,11 +1424,14 @@ class Replica:
         tree = self._ensure_tree()
         root = np.zeros(1, np.int64)
         blocks = sync_proto.make_blocks(tree, 0, root, self.levels_per_round)
+        # openers advertise the log horizon (memoised by the WAL: no disk
+        # read on the tick path) so the peer can choose log shipping
+        horizon = self._wal.horizon() if self.log_shipping and self._wal is not None else None
         msg = sync_proto.DiffMsg(
             originator=self.addr, frm=self.addr, to=n, level=0, idx=root,
-            blocks=blocks, seq=self._seq,
+            blocks=blocks, seq=self._seq, log_horizon=horizon,
         )
-        if self.transport.send(n, msg):
+        if (self.transport.send if send is None else send)(n, msg):
             self._outstanding[n] = now + self.sync_timeout
             # an eventual AckMsg for this round proves the peer held all
             # we had when the round OPENED; expired rounds may overlap in
@@ -1375,12 +1441,12 @@ class Replica:
         logger.debug("tried to sync with a dead neighbour: %r", n)
         return False
 
-    def _push_deltas(self) -> None:
+    def _push_deltas(self, send=None) -> None:
         """Eagerly push own fresh dots to each neighbour as
         delta-interval slices (Almeida et al.'s delta mode), plus
         full-row slices of kill-touched rows: plan, extract, emit."""
         for job in self._eager_jobs():
-            self._emit_push_job(job, self._extract_push_job(job))
+            self._emit_push_job(job, self._extract_push_job(job), send)
 
     def _eager_jobs(self) -> list:
         jobs: list = []
@@ -1444,20 +1510,21 @@ class Replica:
             )
         return self.model.extract_rows(self.state, self._i64_tensor(job.rows))
 
-    def _emit_push_job(self, job: _PushJob, sl) -> None:
+    def _emit_push_job(self, job: _PushJob, sl, send=None) -> None:
         """Fan one extracted push slice out to the job's peers and
         advance their cursors on successful sends — the emission tail of
         the solo and the fleet egress paths (caller holds the lock).
         ``sl`` is on the device (solo) or already on the host (fleet)."""
         arrays, payloads = self._slice_wire(sl, job.rows)
         buckets = job.pending.astype(np.int64)
+        send = self.transport.send if send is None else send
         for p in job.peers:
             n = p[0] if job.kind == "delta" else p
             msg = sync_proto.EntriesMsg(
                 originator=self.addr, frm=self.addr, to=n,
                 buckets=buckets, arrays=arrays, payloads=payloads,
             )
-            if self.transport.send(n, msg):
+            if send(n, msg):
                 if job.kind == "delta":
                     p[1][job.pending] = job.advance
                 else:
@@ -1498,18 +1565,34 @@ class Replica:
                 # a dead peer must not gate segment reclaim forever
                 self._ack_seq.pop(msg.addr, None)
                 self._sync_open_seq.pop(msg.addr, None)
-            elif isinstance(msg, (sync_proto.GetLogMsg, sync_proto.LogChunkMsg)):
-                raise NotImplementedError(
-                    "log-shipping catch-up is not ported to PyTorch yet; it comes "
-                    "with the TCP transport and log shipping slice"
-                )
+                # a catch-up stream dies with its server: applied chunks
+                # were ordinary idempotent merges, so the watermark stands
+                # at the last one and the peer's next opener resumes there
+                self._catchup.pop(msg.addr, None)
+            elif isinstance(msg, sync_proto.GetLogMsg):
+                self._handle_get_log(msg)
+            elif isinstance(msg, sync_proto.LogChunkMsg):
+                self._handle_log_chunk(msg)
             elif isinstance(msg, sync_proto.FleetFrameMsg):
-                raise NotImplementedError(
-                    "fleet frames over TCP are not ported to PyTorch yet; they come "
-                    "with the TCP transport and log shipping slice"
-                )
+                self._handle_fleet_frame(msg)
             else:
                 raise TypeError(f"unknown message: {msg!r}")
+
+    def _handle_fleet_frame(self, msg: sync_proto.FleetFrameMsg) -> None:
+        """Fan a fleet egress envelope out. The TCP transport decodes
+        ``_FLEETF`` frames before delivery, so this arm serves
+        transports that hand the envelope to a mailbox whole: entries
+        addressed to this replica dispatch through :meth:`handle` (the
+        RLock makes the re-entry a no-op acquire), everything else
+        forwards unopened, regrouped per next-hop endpoint."""
+
+        def local(to, m) -> bool:
+            if to == self.addr or to == self.name:
+                self.handle(m)
+                return True
+            return False
+
+        forward_fleet_entries(self.transport, msg.entries, local)
 
     def _handle_diff(self, msg: sync_proto.DiffMsg) -> None:
         self._flush()
@@ -1518,10 +1601,48 @@ class Replica:
             tree, msg.level, msg.idx, msg.blocks, self.max_sync_size
         )
         if len(end_idx) == 0:
-            # trees agree under every compared node ({:ok, []} path)
+            # trees agree under every compared node ({:ok, []} path). For
+            # a ROUND OPENER that is a whole-tree proof: digest equality ⇒
+            # content equality ⇒ we cover the sender's state at its
+            # stamped seq, the applied watermark log shipping resumes
+            # from. Mid-walk frames re-verify only the frontier subtrees
+            # (the rest was proven at round open), so their stamps teach
+            # nothing watermark-safe
+            if (
+                msg.level == 0
+                and msg.originator == msg.frm
+                and msg.seq > self._applied_seq.get(msg.frm, 0)
+            ):
+                self._note_applied_seq(msg.frm, int(msg.seq))
             cleared = self.addr if msg.originator != self.addr else msg.frm
             self.transport.send(msg.originator, sync_proto.AckMsg(clear_addr=cleared))
             return
+        # log-shipping mode decision: on a DIVERGING round opener from a
+        # log-capable originator, a peer whose watermark sits within the
+        # advertised horizon answers with a GetLogMsg — the divergence is
+        # the originator's log suffix past the watermark, so one streamed
+        # replay replaces the level walk. Past the horizon the walk heals
+        # the compacted prefix regardless (and everything else it
+        # finds), so suffix chunks pay only when the servable suffix
+        # dwarfs the walk-bound prefix (``catchup_suffix_ratio``). The
+        # strict ``seq > watermark`` leg: a diverging opener at or below
+        # the watermark means the sender regressed, and its log has
+        # nothing for us
+        if (
+            self.log_shipping
+            and msg.level == 0
+            and msg.originator == msg.frm
+            and msg.originator != self.addr
+            and msg.log_horizon is not None
+            and msg.seq > self._applied_seq.get(msg.frm, 0)
+            and self._applied_seq.get(msg.frm, 0) >= self._catchup_walk_floor.get(msg.frm, 0)
+        ):
+            watermark = self._applied_seq.get(msg.frm, 0)
+            if watermark >= msg.log_horizon or (
+                msg.seq - msg.log_horizon >= self.catchup_suffix_ratio * (msg.log_horizon - watermark)
+            ):
+                self._request_catchup(msg.frm)
+                return
         if end_level == self.tree_depth:
             buckets = end_idx[: int(min(self.max_sync_size, len(end_idx)))]
             if msg.originator == self.addr:
@@ -1580,11 +1701,17 @@ class Replica:
         arrays["rows"] = rows  # row indices are control metadata: numpy
         return arrays, payloads
 
-    def _send_entries(self, to, buckets: np.ndarray, originator) -> bool:
+    def _extract_rows_wire(self, buckets: np.ndarray) -> tuple[dict, dict]:
+        """Extract the given bucket rows as one wire-tier-padded entries
+        body — THE row-transfer shape, shared by walk transfers and
+        log-shipping chunks so the padding cannot drift between them."""
         rows = np.full(_wire(max(len(buckets), 1)), -1, np.int32)
         rows[: len(buckets)] = np.asarray(buckets, np.int32)
         sl = self.model.extract_rows(self.state, self._i64_tensor(rows))
-        arrays, payloads = self._slice_wire(sl, rows)
+        return self._slice_wire(sl, rows)
+
+    def _send_entries(self, to, buckets: np.ndarray, originator) -> bool:
+        arrays, payloads = self._extract_rows_wire(buckets)
         return self.transport.send(
             to,
             sync_proto.EntriesMsg(
@@ -1597,9 +1724,15 @@ class Replica:
             ),
         )
 
-    def _handle_entries_inner(self, msg: sync_proto.EntriesMsg) -> None:
+    def _handle_entries_inner(self, msg: sync_proto.EntriesMsg, log_noop: bool = True) -> "int | None":
+        """Merge one entries slice; returns the entries it inserted or
+        killed (None when it gapped and was answered with a repair
+        request instead). With ``log_noop`` off, a merge that left the
+        state as it was mints no seq and writes no record (a catch-up
+        chunk's rows the receiver holds already)."""
         self._flush()
         t0 = time.perf_counter()
+        before = self.state
         a = msg.arrays
         sl = slice_from_wire(a, self.device)
         rows_np = np.asarray(a["rows"])
@@ -1608,7 +1741,7 @@ class Replica:
         want_diffs = self.on_diffs is not None
         keys_b = self._winner_records_rows(rows_np[rows_np >= 0]) if want_diffs else {}
         # payloads first: diff values for incoming winners must resolve
-        self._register_slice_payloads(msg.payloads)
+        n_new = self._register_slice_payloads(msg.payloads)
 
         try:
             self.state, res = self.model.merge_rows_into(
@@ -1626,8 +1759,13 @@ class Replica:
                 ),
             )
             self._gc_pressure += len(msg.payloads)
-            return
+            return None
 
+        if not log_noop and _same_state(before, self.state):
+            # only the dots it registered can be garbage
+            self._gc_pressure += n_new
+            self._maybe_gc()
+            return 0
         self._seq += 1
         # durability happens-before publication: log the merged slice
         # before diffs or telemetry see it, rolling the seq back if the
@@ -1666,13 +1804,324 @@ class Replica:
                 },
                 {"name": self.name, "plane": "host"},
             )
-        self._gc_pressure += len(msg.payloads) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        n_ins, n_kill = _TR_INGEST_COUNTS.get((res.n_inserted, res.n_killed))
+        self._gc_pressure += len(msg.payloads) + int(n_kill)
         self._maybe_gc()
+        return int(n_ins) + int(n_kill)
 
-    def _register_slice_payloads(self, payloads: dict) -> None:
-        self._payloads.update(payloads)
-        for _dot, (key_term, _val) in payloads.items():
-            self._key_terms[key_hash64(key_term)] = key_term
+    def _register_slice_payloads(self, payloads: dict) -> int:
+        """Register a slice's payloads; returns how many dots were new.
+        A dot held already has its payload and its key term (gc prunes
+        both together), so only new dots are stored and hashed: a
+        full-row slice mostly re-ships entries the receiver holds."""
+        pay, terms = self._payloads, self._key_terms
+        n = len(pay)
+        for dot, p in payloads.items():
+            if dot not in pay:
+                pay[dot] = p
+                terms[key_hash64(p[0])] = p[0]
+        return len(pay) - n
+
+    # ------------------------------------------------------------------
+    # log-shipping catch-up (``replica.py:2792-3165``). The WAL range is
+    # a CHANGED-BUCKET INDEX, not replayed literally: re-applying another
+    # writer's ``batch`` ops here would re-mint dots under the wrong
+    # writer and counters and break add-wins. Full-row slices extracted
+    # from the current state are the walk's own transfer shape, so a
+    # chunk merges idempotently and bit-comparably with a walk.
+
+    #: watermarks survive Down and set_neighbours churn on purpose (the
+    #: rejoin is when they pay off), so the dicts are bounded instead of
+    #: pruned: past this many peers the least recently advanced one is
+    #: evicted (that peer's next catch-up walks — safe, just slower)
+    MAX_PEER_WATERMARKS = 4096
+
+    def _note_applied_seq(self, peer, seq: int) -> None:
+        """Advance (never regress) the applied watermark for ``peer``,
+        keeping the dict LRU-ordered and bounded; a watermark passing
+        the peer's walk floor retires the floor (the walk has healed the
+        unservable span it guarded)."""
+        d = self._applied_seq
+        cur = d.pop(peer, 0)  # pop + reinsert: insertion order ≈ recency
+        d[peer] = max(cur, int(seq))
+        while len(d) > self.MAX_PEER_WATERMARKS:
+            d.pop(next(iter(d)))
+        floor = self._catchup_walk_floor
+        if floor and d[peer] >= floor.get(peer, 0):
+            floor.pop(peer, None)
+        while len(floor) > self.MAX_PEER_WATERMARKS:
+            floor.pop(next(iter(floor)))
+
+    def _request_catchup(self, peer) -> None:
+        """Open (or refresh) the one in-flight catch-up stream toward
+        ``peer``, resuming from our applied watermark of its history —
+        the peer-side answer to a diverging round opener, so data keeps
+        flowing originator → peer. Caller holds the lock."""
+        if not self.log_shipping or peer == self.addr:
+            return
+        now = time.monotonic()
+        st = self._catchup.get(peer)
+        if st is not None and now < st["expiry"]:
+            return  # requester-paced: ≤ 1 outstanding request per peer
+        last = int(self._applied_seq.get(peer, 0))
+        msg = sync_proto.GetLogMsg(frm=self.addr, to=peer, last_seq=last, applied_seq=last)
+        if self.transport.send(peer, msg):
+            self._catchup[peer] = {
+                "t0": now,
+                "expiry": now + self.sync_timeout,
+                "chunks": 0,
+                "horizon": False,
+                # correlates chunks to THIS stream: a chunk answering an
+                # older (timed-out) request must not pace follow-ups
+                "last_req": last,
+            }
+
+    def _iter_log_records(self, lo: int, hi: int):
+        """WAL records with ``lo < seq ≤ hi`` in seq order, through the
+        bounded range cursor (a huge lag never loads the whole log)."""
+        cursor = lo
+        while cursor < hi:
+            records, next_seq, exhausted = self._wal.read_range(cursor, hi)
+            yield from records
+            if exhausted or next_seq == cursor:
+                return
+            cursor = next_seq
+
+    def _scan_log_rows(self, lo: int, hi: int) -> tuple[int, set, int, bool, int | None]:
+        """Consume records in ``(lo, hi]`` accumulating the touched-
+        bucket set until the chunk row budget fills. Whole records only:
+        the chunk's ``seq_hi`` becomes the peer's watermark, so a chunk
+        covers EVERY bucket its seq range touched. Records whose row
+        effects cannot be served bounded are BARRIERS — an unknown kind,
+        or a ``clear`` touching more buckets than the hard row cap. The
+        scan stops BEFORE a barrier; a barrier that is the first record
+        is returned so the server answers "walk through here, log-ship
+        after". A DENSE suffix (the chunk's rows cover a quarter of the
+        table when its budget fills) goes on taking whole records up to
+        the hard cap: later records then mostly re-touch rows the chunk
+        ships anyway, and chunking them apart re-ships those full rows
+        once a chunk (with the JAX replica's budget alone, 64 records of
+        1024 random keys on a 4096-row table take about 32 chunks of
+        about 1600 rows each).
+        Returns ``(n_records, touched_rows, seq_hi, more,
+        barrier_seq)``."""
+        mask = self.num_buckets - 1
+        hard_cap = 4 * self.catchup_chunk_rows
+        touched: set[int] = set()
+        n_rec = 0
+        seq_hi = lo
+        more = False
+        barrier_seq: int | None = None
+        for rec in self._iter_log_records(lo, hi):
+            if len(touched) >= self.catchup_chunk_rows and 4 * len(touched) < self.num_buckets:
+                more = True  # budget full: this record opens the next chunk
+                break
+            kind = rec.get("kind")
+            rec_rows: set[int] | None = None
+            if kind == "batch":
+                rec_rows = set()
+                for f, key_term, _v in rec["ops"]:
+                    if f == "clear":
+                        # a clear touches every bucket; past the hard cap
+                        # it is a barrier (classified without building
+                        # the full keyspace set)
+                        rec_rows = set(range(self.num_buckets)) if self.num_buckets <= hard_cap else None
+                        break
+                    rec_rows.add(int(key_hash64(key_term)) & mask)
+            elif kind == "entries":
+                rows = np.asarray(rec["arrays"]["rows"])
+                rec_rows = set(rows[rows >= 0].tolist())
+            if rec_rows is None or (
+                len(touched) + len(rec_rows) > hard_cap and len(touched | rec_rows) > hard_cap
+            ):
+                if n_rec == 0:
+                    barrier_seq = int(rec["seq"])
+                else:
+                    more = True
+                break
+            touched |= rec_rows
+            n_rec += 1
+            seq_hi = int(rec["seq"])
+        return n_rec, touched, seq_hi, more, barrier_seq
+
+    def _extract_catchup_slices(self, rows_sorted: np.ndarray) -> list:
+        """Full-row entry slices for the touched buckets: one slice a
+        chunk, split only when a record (a ``clear``) pushed the chunk
+        past the row budget."""
+        limit = self.catchup_chunk_rows
+        slices = []
+        for s in range(0, len(rows_sorted), limit):
+            part = np.asarray(rows_sorted[s : s + limit], np.int64)
+            arrays, payloads = self._extract_rows_wire(part)
+            slices.append({"buckets": part, "arrays": arrays, "payloads": payloads})
+        return slices
+
+    def _handle_get_log(self, msg: sync_proto.GetLogMsg) -> None:
+        """Serve one bounded catch-up chunk from the WAL window that
+        compaction retains. A request below the compaction horizon is
+        clamped: the chunk covers ``(horizon, seq_hi]`` with the horizon
+        made explicit, and the pre-horizon prefix heals through a digest
+        walk opened alongside."""
+        self._flush()
+        peer = msg.frm
+        # applied_seq is the peer's sound claim of how much of OUR
+        # history it holds (NOT last_seq, a resume cursor that may sit
+        # past barrier spans); a claim beyond our seq is a mixed-history
+        # signal and must not reclaim records the peer cannot hold
+        if self._ack_seq.get(peer, 0) < int(msg.applied_seq) <= self._seq:
+            self._ack_seq[peer] = int(msg.applied_seq)
+        if self._wal is None or not self.log_shipping:
+            # nothing servable: everything is pre-horizon, heal by walk,
+            # superseding the round whose opener prompted this request
+            self.transport.send(
+                peer,
+                sync_proto.LogChunkMsg(
+                    frm=self.addr, to=peer, seq_lo=int(msg.last_seq),
+                    seq_hi=int(msg.last_seq), more=False, horizon=self._seq, slices=[],
+                ),
+            )
+            self._outstanding.pop(peer, None)
+            self._open_walk(peer)
+            return
+        t0 = time.perf_counter()
+        horizon = self._wal.horizon()
+        clamped = int(msg.last_seq) < horizon
+        lo = max(int(msg.last_seq), horizon)
+        hi = self._wal.last_seq
+        n_rec, touched, seq_hi, more, barrier_seq = self._scan_log_rows(lo, hi)
+        if barrier_seq is not None:
+            # the next record is unservable by log: an explicit horizon
+            # AT the barrier — the walk covers through it, log shipping
+            # resumes after it
+            clamped, horizon, more = True, barrier_seq, barrier_seq < hi
+        slices = self._extract_catchup_slices(np.sort(np.fromiter(touched, np.int64)))
+        sent = self.transport.send(
+            peer,
+            sync_proto.LogChunkMsg(
+                frm=self.addr, to=peer, seq_lo=lo, seq_hi=seq_hi, more=more,
+                horizon=horizon if clamped else None, slices=slices,
+            ),
+        )
+        if sent:
+            n_bytes = _slices_nbytes(slices)
+            n_entries = sum(len(s["payloads"]) for s in slices)
+            self._catchup_chunks_served += 1
+            self._catchup_bytes_shipped += n_bytes
+            # padding accounting: shipped entry lanes against alive entries
+            self._catchup_lanes_shipped += sum(int(s["arrays"]["key"].size) for s in slices)
+            self._catchup_entries_shipped += n_entries
+            if telemetry.has_handlers(telemetry.CATCHUP_CHUNK):
+                telemetry.execute(
+                    telemetry.CATCHUP_CHUNK,
+                    {
+                        "records": n_rec,
+                        "rows": len(touched),
+                        "entries": n_entries,
+                        "bytes": n_bytes,
+                        "duration_s": time.perf_counter() - t0,
+                    },
+                    {"name": self.name, "role": "server", "peer": peer},
+                )
+        if clamped:
+            # the round whose opener prompted this request still holds
+            # its in-flight slot: supersede it with a FRESH walk, now
+            self._outstanding.pop(peer, None)
+            self._open_walk(peer)
+
+    def _handle_log_chunk(self, msg: sync_proto.LogChunkMsg) -> None:
+        """Apply one catch-up chunk: each slice enters as an
+        ``EntriesMsg`` through the normal idempotent merge path (one
+        merge a slice: slices are already chunk-sized), then the stream
+        either continues (a requester-paced ``GetLogMsg`` from
+        ``seq_hi``) or completes."""
+        peer = msg.frm
+        st = self._catchup.get(peer)
+        # a chunk belongs to the CURRENT stream only when it answers our
+        # latest request; a superseded request's chunk still applies but
+        # neither paces nor completes the stream
+        current = st is not None and int(msg.seq_lo) >= int(st["last_req"])
+        if not current and int(msg.seq_hi) <= self._applied_seq.get(peer, 0):
+            # a chunk of a superseded request (re-sent after its stream
+            # timed out while the chunk was still on its way) that our
+            # watermark covers already: the JAX replica merges it again
+            return
+        t0 = time.perf_counter()
+        for s in msg.slices:
+            # a slice that changes nothing is not logged: the rows it
+            # carries are held already (often the receiver's own, back
+            # from the peer's log), and a record of them would be served
+            # back to that peer in turn — the JAX replica logs it, so
+            # two WAL replicas' streams echo each other (``ROADMAP.md``
+            # §3.6)
+            self._handle_entries_inner(
+                sync_proto.EntriesMsg(
+                    originator=peer, frm=peer, to=self.addr,
+                    buckets=np.asarray(s["buckets"], np.int64),
+                    arrays=s["arrays"], payloads=s["payloads"],
+                ),
+                log_noop=False,
+            )
+        # full-row slices never gap, so (seq_lo, seq_hi] is now covered —
+        # but the watermark advances only when that range CONNECTS to it
+        # (a clamped chunk must not claim the unshipped prefix), and
+        # never regresses
+        if self._applied_seq.get(peer, 0) >= int(msg.seq_lo) and int(msg.seq_hi) > self._applied_seq.get(peer, 0):
+            self._note_applied_seq(peer, int(msg.seq_hi))
+        self._catchup_chunks_applied += 1
+        self._catchup_rows_applied += sum(len(s["buckets"]) for s in msg.slices)
+        if msg.horizon is not None:
+            self._catchup_horizon_fallbacks += 1
+            if st is not None:
+                st["horizon"] = True
+            # the span through msg.horizon is unservable by this peer's
+            # log: walk on future openers until our watermark passes it
+            self._catchup_walk_floor[peer] = max(self._catchup_walk_floor.get(peer, 0), int(msg.horizon))
+        if telemetry.has_handlers(telemetry.CATCHUP_CHUNK):
+            telemetry.execute(
+                telemetry.CATCHUP_CHUNK,
+                {
+                    "records": 0,
+                    "rows": sum(len(s["buckets"]) for s in msg.slices),
+                    "entries": sum(len(s["payloads"]) for s in msg.slices),
+                    "bytes": _slices_nbytes(msg.slices),
+                    "duration_s": time.perf_counter() - t0,
+                },
+                {"name": self.name, "role": "client", "peer": peer},
+            )
+        if msg.more:
+            if not current:
+                return  # a superseded stream's chunk: applied, not paced
+            st["chunks"] += 1
+            st["expiry"] = time.monotonic() + self.sync_timeout
+            # resume past any barrier horizon; the watermark gate above
+            # keeps the skipped span out of our coverage claim
+            nxt = max(int(msg.seq_hi), int(msg.horizon or 0))
+            st["last_req"] = nxt
+            if not self.transport.send(
+                peer,
+                sync_proto.GetLogMsg(
+                    frm=self.addr, to=peer, last_seq=nxt,
+                    # resume cursor ≠ coverage claim
+                    applied_seq=int(self._applied_seq.get(peer, 0)),
+                ),
+            ):
+                self._catchup.pop(peer, None)  # server died mid-stream
+        elif current:
+            dur = time.monotonic() - st["t0"]
+            self._catchup_last_duration = dur
+            if telemetry.has_handlers(telemetry.CATCHUP_DONE):
+                telemetry.execute(
+                    telemetry.CATCHUP_DONE,
+                    {"chunks": st["chunks"] + 1, "duration_s": dur, "horizon_fallback": int(st["horizon"])},
+                    {"name": self.name, "peer": peer},
+                )
+            if not st["horizon"]:
+                # an unclamped stream covered everything up to the
+                # server's round-open seq — what a walk-equality ack
+                # claims, so the same ack clears the server's slot and
+                # advances its compaction watermark for us
+                self.transport.send(peer, sync_proto.AckMsg(clear_addr=self.addr))
+            self._catchup.pop(peer, None)
 
     # ------------------------------------------------------------------
     # payload GC (host dictionaries must track device alive masks)
@@ -2012,9 +2461,10 @@ class Replica:
         ``process_pending``: messages and grouped dispatches, the depth
         histogram (group size → dispatches) and the gap fallbacks;
         ``fleet`` the batched dispatches this replica rode as a fleet
-        member; ``wal`` (None without a WAL) the records since the last
-        compaction, the reclaim floor, the segment count and the log
-        horizon."""
+        member; ``catchup`` the log-shipping chunks served and applied,
+        rows, bytes, padding and horizon fallbacks; ``wal`` (None
+        without a WAL) the records since the last compaction, the
+        reclaim floor, the segment count and the log horizon."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
@@ -2039,6 +2489,24 @@ class Replica:
                     "dispatches": self._fleet_dispatches,
                     "batched_messages": self._fleet_messages,
                     "fallbacks": self._fleet_fallbacks,
+                },
+                "catchup": {
+                    "store": self.model.backend,
+                    "chunks_served": self._catchup_chunks_served,
+                    "chunks_applied": self._catchup_chunks_applied,
+                    "rows_applied": self._catchup_rows_applied,
+                    "bytes_shipped": self._catchup_bytes_shipped,
+                    "lanes_shipped": self._catchup_lanes_shipped,
+                    "entries_shipped": self._catchup_entries_shipped,
+                    # alive entries per shipped lane (1.0 = dense)
+                    "chunk_fill_ratio": (
+                        round(self._catchup_entries_shipped / self._catchup_lanes_shipped, 4)
+                        if self._catchup_lanes_shipped
+                        else 0.0
+                    ),
+                    "horizon_fallbacks": self._catchup_horizon_fallbacks,
+                    "in_flight": len(self._catchup),
+                    "last_duration_s": round(self._catchup_last_duration, 6),
                 },
                 "device": str(self.device),
                 # process-wide launch count of the probe-window kernel

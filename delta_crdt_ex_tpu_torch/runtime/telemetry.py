@@ -4,8 +4,8 @@ The reference fires ``[:delta_crdt, :sync, :done]`` with
 ``%{keys_updated_count: n}`` and ``%{name: name}`` on **every** merge —
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
 contract here, plus the capacity-growth, sync-round, ingress-coalescing,
-WAL, fleet dispatch/egress and fault-trip events, under the same
-attach/execute API. The events of later slices (serving, …) come with
+WAL, log-shipping catch-up, fleet dispatch/egress and fault-trip
+events, under the same attach/execute API. The events of later slices (serving, …) come with
 them.
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
@@ -25,8 +25,10 @@ INGEST_COALESCE = ("delta_crdt", "ingest", "coalesce")  # measurements: depth, r
 WAL_APPEND = ("delta_crdt", "wal", "append")  # measurements: bytes, records, duration_s
 WAL_COMPACT = ("delta_crdt", "wal", "compact")  # measurements: segments_deleted, bytes_reclaimed, duration_s
 WAL_RECOVER = ("delta_crdt", "wal", "recover")  # measurements: records, bytes, duration_s
+CATCHUP_CHUNK = ("delta_crdt", "catchup", "chunk")  # measurements: records, rows, entries, bytes, duration_s; metadata: name, role ("server"|"client"), peer
+CATCHUP_DONE = ("delta_crdt", "catchup", "done")  # measurements: chunks, duration_s, horizon_fallback; metadata: name, peer
 FLEET_DISPATCH = ("delta_crdt", "fleet", "dispatch")  # measurements: replicas, lanes, messages, rows, padded_rows, duration_s; metadata: fleet
-FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_batched, jobs_solo, dispatches, duration_s; metadata: fleet
+FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_batched, jobs_solo, dispatches, frames, frame_members, duration_s; metadata: fleet
 FAULT_TRIP = ("delta_crdt", "fault", "trip")  # measurements: trips (per trip); metadata: site
 
 _lock = threading.Lock()

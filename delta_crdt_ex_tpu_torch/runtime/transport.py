@@ -9,12 +9,13 @@ interface so the same replica/protocol code runs over:
 - :class:`LocalTransport` — same-process registry + mailboxes (covers the
   reference's single-VM test topology, SURVEY §4, and the batched
   many-replicas-per-chip bench path);
-- a socket transport for cross-host control (the JAX package's
-  ``runtime/tcp_transport.py``; not yet ported).
+- :class:`delta_crdt_ex_tpu_torch.runtime.tcp_transport.TcpTransport`
+  — a socket transport for cross-host control, on the JAX package's
+  wire.
 
 This module is the PyTorch port's own copy of
 ``delta_crdt_ex_tpu/runtime/transport.py`` (the port imports nothing of
-the JAX package); the fleet-envelope relay waits for the fleet slice.
+the JAX package), the fleet-envelope relay policy included.
 
 Send to a dead address returns ``False`` (the reference rescues
 ``ArgumentError`` and moves on — sync is idempotent, ``causal_crdt.ex:
@@ -65,6 +66,18 @@ class LocalTransport:
         for w in watchers:
             self.send(w, Down(addr))
 
+    def alive(self, addr: Hashable) -> bool:
+        with self._lock:
+            return addr in self._owners
+
+    def device_of(self, addr: Hashable):
+        """The torch device the replica behind ``addr`` keeps its state
+        on (None when unknown). The port's sync slices travel on the
+        host plane whatever this says; it is the transport interface's
+        answer for callers that place data per peer."""
+        with self._lock:
+            return getattr(self._owners.get(addr), "device", None)
+
     def send(self, addr: Hashable, msg: Any) -> bool:
         with self._lock:
             mb = self._mailboxes.get(addr)
@@ -89,6 +102,13 @@ class LocalTransport:
     def demonitor(self, watcher: Hashable, target: Hashable) -> None:
         with self._lock:
             self._monitors.get(target, set()).discard(watcher)
+
+    def queue_depth(self, addr: Hashable) -> int:
+        """Queued messages in one mailbox — a gauge (``qsize`` is
+        approximate under concurrency)."""
+        with self._lock:
+            mb = self._mailboxes.get(addr)
+        return mb.qsize() if mb is not None else 0
 
     # -- driving (deterministic mode) ------------------------------------
 
@@ -142,6 +162,29 @@ class LocalTransport:
             if not progressed:
                 return delivered
         raise RuntimeError("transport did not quiesce")
+
+
+def forward_fleet_entries(transport, entries, local=None) -> None:
+    """THE fleet-envelope relay policy, shared by the TCP receive path
+    and the replica's whole-envelope fallback so the two cannot drift:
+    entries ``local`` claims (returns True) are done; the rest regroup
+    per next-hop endpoint (``transport.fleet_sink``) and re-emit as ONE
+    rewritten frame each — per-destination order preserved, inner
+    messages untouched — with per-member ``transport.send`` for
+    sink-less destinations and the renegotiated-down unbundle inside
+    ``send_fleet_frame`` itself."""
+    sink_of = getattr(transport, "fleet_sink", None)
+    forwards: dict = {}
+    for to, m in entries:
+        if local is not None and local(to, m):
+            continue
+        sink = sink_of(to) if sink_of is not None else None
+        if sink is None:
+            transport.send(to, m)
+        else:
+            forwards.setdefault(sink, []).append((to, m))
+    for endpoint, group in forwards.items():
+        transport.send_fleet_frame(endpoint, group)
 
 
 _default: LocalTransport | None = None

@@ -283,14 +283,14 @@ def test_rotate_failure_keeps_the_commit_and_the_log_recovers(tmp_path, spawn, s
     script: its commit raises after the durable write, the replica rolls
     the seq back, the retry re-mints seq 1, and recovery rejects the log
     as a regressed sequence (``ROADMAP.md`` §3)."""
-    rep = spawn("flt_rot", store, segment_bytes=64)
+    rep = spawn("flt_rot", store, segment_bytes=64, log_shipping=False)
     with faults.armed(FaultPlan([("wal.rotate", 1, "raise")])) as plan:
         rep.mutate("add", ["a", 1])
     assert plan.exhausted() and rep._seq == 1
     rep.mutate("add", ["b", 2])
     want = rep.read()
     rep.crash()
-    assert spawn("flt_rot", store).read() == want == {"a": 1, "b": 2}
+    assert spawn("flt_rot", store, log_shipping=False).read() == want == {"a": 1, "b": 2}
 
     jdir = str(tmp_path / "jax")
     mk = lambda: jdc.start_link(jdc.AWLWWMap, threaded=False, name="flt_rot", capacity=128, tree_depth=5,

@@ -35,7 +35,7 @@ TOP = 1 << 63
 def _pkg(pkg):
     if pkg == "jax":
         return jdc, JTransport, JClock, JFleet, {"log_shipping": False}
-    return t_api, TTransport, TClock, Fleet, {"device": "cpu"}
+    return t_api, TTransport, TClock, Fleet, {"device": "cpu", "log_shipping": False}
 
 
 def wal_fleet_script(pkg: str, tmp, store, seed: int = 0, n: int = 4):

@@ -43,7 +43,7 @@ from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport as TTranspo
 def _pkg(pkg):
     if pkg == "jax":
         return jdc, JTransport, JClock, JFleet, JReplica, {"log_shipping": False}
-    return t_api, TTransport, TClock, Fleet, Replica, {"device": "cpu"}
+    return t_api, TTransport, TClock, Fleet, Replica, {"device": "cpu", "log_shipping": False}
 
 
 def first_propagation(pkg: str, n_keys: int = 16384, tree_depth: int = 8) -> dict:

@@ -147,8 +147,10 @@ def test_port_imports_no_jax():
         "import delta_crdt_ex_tpu_torch.runtime.transition, delta_crdt_ex_tpu_torch.runtime.fleet\n"
         "import delta_crdt_ex_tpu_torch.runtime.storage, delta_crdt_ex_tpu_torch.runtime.wal\n"
         "import delta_crdt_ex_tpu_torch.runtime.simnet, delta_crdt_ex_tpu_torch.utils.faults\n"
+        "import delta_crdt_ex_tpu_torch.runtime.tcp_transport, delta_crdt_ex_tpu_torch.runtime.transport\n"
         "from delta_crdt_ex_tpu_torch import AWSet, BinnedAWLWWMap, HashAWSet, HashAWLWWMap\n"
         "from delta_crdt_ex_tpu_torch import FileStorage, MemoryStorage, SimNetwork, WalLog, child_spec\n"
+        "from delta_crdt_ex_tpu_torch import TcpTransport\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
     )
@@ -216,8 +218,8 @@ def test_stats_on_both_stores(store):
 @pytest.mark.parametrize(
     "opts, err",
     [
-        ({"log_shipping": True}, NotImplementedError),
-        ({"catchup_chunk_rows": 64}, NotImplementedError),
+        ({"obs": True}, NotImplementedError),
+        ({"store": "hash", "tree_fanout": 2}, NotImplementedError),
         ({"store": "hash", "flight_dump_path": "x"}, NotImplementedError),
         ({"store": "hash", "tree_gossip": True}, NotImplementedError),
         ({"store": "hash", "no_such_option": 1}, TypeError),

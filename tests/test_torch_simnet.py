@@ -35,7 +35,7 @@ def build(n_replicas, seed, drop, dup, store, pkg="torch"):
     jax_side = pkg == "jax"
     net = (JSimNetwork if jax_side else SimNetwork)(seed=seed, drop_rate=drop, dup_rate=dup)
     clock = JClock() if jax_side else LogicalClock()
-    extra = {"log_shipping": False} if jax_side else {"device": "cpu"}
+    extra = {"log_shipping": False} if jax_side else {"device": "cpu", "log_shipping": False}
     dc = jdc if jax_side else tdc
     reps = [
         dc.start_link(

@@ -33,7 +33,7 @@ SITES = ("replica.slice_payload_dots", "replica.slice_wire", "replica.snapshot",
 def _pkg(pkg):
     if pkg == "jax":
         return jdc, JTransport(), JClock(), JFleet, j_transfers, {"log_shipping": False}
-    return t_api, TTransport(), TClock(), Fleet, t_transfers, {"device": "cpu"}
+    return t_api, TTransport(), TClock(), Fleet, t_transfers, {"device": "cpu", "log_shipping": False}
 
 
 def _delta(ledger, before) -> dict:

@@ -54,8 +54,8 @@ def spawn():
     def mk(pkg="torch", **opts):
         opts.setdefault("capacity", 64)
         opts.setdefault("tree_depth", 6)
+        opts.setdefault("log_shipping", False)
         if pkg == "jax":
-            opts.setdefault("log_shipping", False)
             r = jdc.start_link(jdc.AWLWWMap, threaded=False, **opts)
         else:
             r = tdc.start_link(tdc.AWLWWMap, threaded=False, device="cpu", **opts)
