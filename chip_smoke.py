@@ -2,11 +2,12 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-9
-    python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a and 9b at a cut key count
+    python3 chip_smoke.py                 # the full run: phases 1-10
+    python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a, 9b, 10a and 10b at a cut key count
     python3 chip_smoke.py --only 7        # the build and phase 7 alone (no result lines)
     python3 chip_smoke.py --only 8        # the build and phase 8 alone (no result lines)
     python3 chip_smoke.py --only 9        # the build and phase 9 alone (no result lines)
+    python3 chip_smoke.py --only 10       # the build, phases 3 and 3b (the pairs phase 10 serves from) and phase 10
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -158,6 +159,37 @@ Phases (each raises on failure; any failure exits nonzero):
    the codec on fleet A's last frame as 9a's line does, and raises
    unless every tick shipped one frame to the one endpoint and
    every member converged with its peer and equals its twin.
+10. serving and observability, ``bench.py --serve``'s legs on the
+   port's front door (``api.frontdoor``), run on the loaded pairs of
+   phases 3 and 3b before they stop. 10a, phase 3b's pair (the default
+   store at 2^20 keys, never cut), a front door with
+   ``max_commit_ops=256`` on replica 1: leg A, 64 clients x 150 ops,
+   grouped admission against the per-op ``mutate`` loop, in ops/s;
+   leg B, 20 snapshot ``read_keys`` finish while replica 1's lock is
+   held; the open-loop mix (70% single-key ``read_keys``, half of them
+   on a 64-key hot pool, the rest uniform over the loaded keys; 30%
+   writes; Poisson arrivals timed from the scheduled arrival; 16
+   workers) at 30% and 70% of the calibrated closed-loop capacity,
+   2.5 s each after one unmeasured soak, p50/p99 per class; one
+   profiler trace (``tracing.trace``) of a 256-op admission commit and
+   a 2048-key ``read_keys``: device busy share, top ops, spans; leg C,
+   a fresh replica at the same geometry takes 32 x 150 concurrent ops
+   through a journalling front door and an unloaded twin replays the
+   journal through ``apply_ops`` (state columns, canonical bytes and
+   WAL bytes bit-equal); the ``obs=True`` overhead (1024-op batches in
+   turns with and without a plane); leg E, a 4 x 400 write spike
+   against a 32-op window sheds and ``/healthz`` answers 503 over HTTP,
+   then 200. 10b, phase 3's pair (the hash store at 2^17 keys, a feed
+   on each side): the mix at 30%; snapshot reads launch the probe
+   kernel from the client threads, and every (H, W, Q) the leg launched
+   is held bit-equal to the plain version on the pinned snapshot's own
+   table (its launches join the kernel line). 10c, a threaded
+   4-member fleet (ring neighbours) behind its front door: 2^14 keys
+   routed in, the mix at 30%, then every member reads the written map.
+   Each leg checks that reads equal the written map, that every
+   acknowledged write reads back from both replicas (every member in
+   10c) and that the replicas converge to equal canonical bytes; 10a
+   and 10c launch no kernel.
 
 Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
@@ -593,7 +625,9 @@ class DiffLog:
 
 def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_sizes=()) -> int:
     """The probe kernel against ``probe_lookup_ref`` on each replica's
-    own final table: queries are every written key (``key0``… and
+    own final table (``reps`` holds replicas, or ``(name, state)``
+    pairs for tables held elsewhere, such as a pinned snapshot's):
+    queries are every written key (``key0``… and
     ``extra``, removed ones included) and 4096 missing keys; the whole
     grid must be bit-equal and find exactly the keys still present.
     Then, at each Q in ``q_sizes`` (the Q a path launched the kernel
@@ -613,8 +647,12 @@ def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_size
         grids.append(np.concatenate([written[: q - n_miss], miss[:n_miss]]).view(np.int64))
     max_err = 0
     for r in reps:
-        with r._lock:
-            st = r.state
+        if isinstance(r, tuple):
+            name, st = r
+        else:
+            name = r.name
+            with r._lock:
+                st = r.state
         for g, hashes in enumerate(grids):
             qk = torch.from_numpy(hashes.copy()).to(st.key.device)
             # (a rehearsal on the CPU has no kernel: it checks the grids)
@@ -627,7 +665,7 @@ def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_size
             if err != 0:
                 bad = torch.nonzero((got != want).any(dim=1))[:4, 0]
                 raise AssertionError(
-                    f"{r.name}: probe kernel disagrees with probe_lookup_ref on the main "
+                    f"{name}: probe kernel disagrees with probe_lookup_ref on the main "
                     f"path's table at Q={len(hashes)}: rows {bad.tolist()}: kernel {got[bad].tolist()} "
                     f"plain {want[bad].tolist()}"
                 )
@@ -635,14 +673,17 @@ def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_size
                 continue
             found = int(want[: len(terms), 0].sum()), int(want[len(terms):, 0].sum())
             if found != (len(terms) - len(removed), 0):
-                raise AssertionError(f"{r.name}: probe grid found {found}, want ({len(terms) - len(removed)}, 0)")
-        log(f"[slice] {r.name}: kernel vs plain on the main path's table (H={st.table_size} "
+                raise AssertionError(f"{name}: probe grid found {found}, want ({len(terms) - len(removed)}, 0)")
+        log(f"[slice] {name}: kernel vs plain on the main path's table (H={st.table_size} "
             f"W={st.probe_window}) at Q={[len(h) for h in grids]}: bit-equal, the first grid found "
             f"{found[0]} written + {found[1]} missing, max_abs_err 0")
     return max_err
 
 
-def phase_slice(n_keys: int, device: str = "cuda") -> dict:
+def phase_slice(n_keys: int, device: str = "cuda", serve=None) -> dict:
+    """Phase 3; ``serve(reps, logs, want)``, when given, runs on the
+    loaded pair after the phase's checks (phase 10b) and its result is
+    the metrics' ``"serve"`` entry."""
     import torch
 
     import delta_crdt_ex_tpu_torch as dc
@@ -731,6 +772,10 @@ def phase_slice(n_keys: int, device: str = "cuda") -> dict:
         # launches below compare the kernel with its plain version and
         # are not the main path's
         metrics["table_max_abs_err"] = check_main_tables(reps, n_keys, removed)
+        if serve is not None:
+            want = {f"key{i}": i for i in range(n_keys) if i % 100 != 0}
+            want.update({f"prop{i}": i for i in range(10)})
+            metrics["serve"] = serve(reps, logs, want)
         return metrics
     finally:
         for r in reps:
@@ -829,7 +874,10 @@ def batch_breakdown(r, n_ops: int = 1024) -> dict:
     return out
 
 
-def phase_binned(n_keys: int, device_name: str, device: str = "cuda") -> dict:
+def phase_binned(n_keys: int, device_name: str, device: str = "cuda", serve=None) -> dict:
+    """Phase 3b; ``serve(reps, transport, want)``, when given, runs on the
+    loaded pair after the phase's checks (phase 10a), its result the
+    metrics' ``"serve"`` entry."""
     import dataclasses
 
     import torch
@@ -932,6 +980,13 @@ def phase_binned(n_keys: int, device_name: str, device: str = "cuda") -> dict:
                 f"ms; one mutate_batch traced: wall {tr['wall_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms "
                 f"(idle share {tr['idle_share']:.4f}), device ms by op "
                 f"{[(k, round(v, 3)) for k, v in tr['ops']]} on {device_name}")
+        if serve is not None:
+            # the arrival counter is 3b's own: phase 10 times its commits
+            # with no SYNC_DONE handler attached
+            telemetry.detach(telemetry.SYNC_DONE, arrivals)
+            if cuda:  # the traced batch of batch_breakdown wrote these
+                want.update({f"traced{i}": i for i in range(1024)})
+            m["serve"] = serve(reps, t, want)
         return m
     finally:
         telemetry.detach(telemetry.SYNC_DONE, arrivals)
@@ -1850,6 +1905,8 @@ def fleet_det_script(device: str, store=None) -> bytes:
 #: where phase 8 keeps its WAL directories: inside the checkout, under
 #: the ignored ``build/``, removed when the phase ends
 WAL_ROOT = Path(__file__).resolve().parent / "build" / "wal"
+#: where phase 10 writes its profiler trace (Chrome format)
+TRACE_ROOT = Path(__file__).resolve().parent / "build" / "traces"
 #: phase 8's WAL settings: the JAX package's defaults
 WAL_SEGMENT_BYTES = 4 << 20
 WAL_FSYNC_MODE = "batch"
@@ -2597,6 +2654,616 @@ def phase_tcp(device_name: str, t_start: float, keys: int = TCP_KEYS, hash_keys:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving front door and the observability plane
+
+#: ``bench.py --serve``'s shape (``bench.py:2931-3345``): leg A's
+#: clients and ops a client, the admission window, the open-loop
+#: workers, rates (fractions of the calibrated closed-loop capacity),
+#: seconds a rate, the read mix's hot pool
+SERVE_CLIENTS = 64
+SERVE_PER_CLIENT = 150
+SERVE_COMMIT_OPS = 256
+SERVE_WORKERS = 16
+SERVE_RATE_FRACS = (0.3, 0.7)
+SERVE_LEG_S = 2.5
+SERVE_CAL_S = 1.0
+SERVE_HOT = 64
+#: leg C's flood (bench's: half the clients), the obs-overhead batches,
+#: 10c's fleet and its preload
+SERVE_PARITY_CLIENTS = 32
+OBS_BATCHES = 8
+SERVE_FLEET_N = 4
+SERVE_FLEET_KEYS = 1 << 14
+#: the sync interval the serving legs run at (``bench.py --serve``'s
+#: leg D, 0.25 s; the reference's default is 0.2 s). Phases 3 and 3b
+#: sync every 20 ms: with 2^20 keys each digest walk under continuous
+#: writes ships whole 256-entry rows and holds replica 1's lock for
+#: much of every interval, and the front door then waits on that lock
+#: (``PERF.md`` §6)
+SERVE_SYNC_INTERVAL = 0.25
+
+
+def pct_ms(lat: list) -> dict:
+    """p50/p99/max in ms of latencies in seconds (nearest rank)."""
+    if not lat:
+        raise AssertionError("no latency samples")
+    a = np.sort(np.asarray(lat, dtype=np.float64)) * 1e3
+    rank = lambda q: a[min(len(a) - 1, int(np.ceil(q * len(a))) - 1)]
+    return {"n": len(a), "p50_ms": float(rank(0.5)), "p99_ms": float(rank(0.99)), "max_ms": float(a[-1])}
+
+
+def run_threads(fns: list, timeout: float) -> float:
+    """Run each callable on its own thread, join them all, re-raise the
+    first error; returns the wall seconds."""
+    errors: list = []
+
+    def wrap(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=wrap, args=(fn,)) for fn in fns]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        if t.is_alive():
+            raise AssertionError(f"a client thread did not finish within {timeout} s")
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
+
+
+def tickets_of(t) -> list:
+    return t if isinstance(t, list) else [t]
+
+
+def open_loop(door, read_pool, want: dict, written: dict, tag: str, fracs, rng, device_name: str) -> dict:
+    """``bench.py --serve``'s open-loop mix on a front door (a replica's
+    or a fleet's): a closed-loop calibration of the same 70/30 mix, then
+    one unmeasured soak at the top rate and one measured run at each
+    rate, Poisson arrivals, each op's latency timed from its SCHEDULED
+    arrival (so queueing delay counts). Reads are single-key
+    ``read_keys`` of a key drawn from ``read_pool`` (half the time the
+    64-key hot pool, the rest uniform over the loaded keys) and must
+    equal ``want``; writes are ``mutate_async`` of fresh keys, recorded
+    in ``written`` once acknowledged."""
+    hot = [f"hot{j}" for j in range(SERVE_HOT)]
+    for tk in [t for j, k in enumerate(hot) for t in tickets_of(door.mutate_async("add", [k, j]))]:
+        tk.result(120)
+    written.update({k: j for j, k in enumerate(hot)})
+    want.update({k: j for j, k in enumerate(hot)})
+    lock = threading.Lock()
+    checked = [0]
+
+    def pick(r: np.random.Generator):
+        return hot[int(r.integers(0, SERVE_HOT))] if r.random() < 0.5 else read_pool[int(r.integers(0, len(read_pool)))]
+
+    def check_read(k, got) -> None:
+        exp = {k: want[k]} if k in want else {}
+        if got != exp:
+            raise AssertionError(f"{tag}: read_keys([{k!r}]) gave {got}, the written map holds {exp}")
+        with lock:
+            checked[0] += 1
+
+    cal_end = time.perf_counter() + SERVE_CAL_S
+    cal_counts = [0] * SERVE_WORKERS
+    cal_written: list = []
+
+    def calibrate(w):
+        r = np.random.default_rng(1000 + w)
+        i = 0
+        while time.perf_counter() < cal_end:
+            if i % 10 < 7:
+                k = pick(r)
+                check_read(k, door.read_keys([k]))
+            else:
+                k = f"{tag}-cal/{w}/{i}"
+                for tk in tickets_of(door.mutate_async("add", [k, i])):
+                    tk.result(120)
+                with lock:
+                    cal_written.append((k, i))
+            cal_counts[w] += 1
+            i += 1
+
+    cal_s = run_threads([lambda w=w: calibrate(w) for w in range(SERVE_WORKERS)], 600)
+    written.update(cal_written)
+    capacity = sum(cal_counts) / cal_s
+    log(f"[serve] {tag}: calibrated closed-loop capacity {capacity:.3f} mixed ops/s ({SERVE_WORKERS} workers, "
+        f"70% reads) on {device_name}")
+    rates = [max(50, int(capacity * f)) for f in fracs]
+    out = {"capacity_ops_per_sec": capacity, "rates": {}}
+    for frac, rate, measured in [(fracs[-1], rates[-1], False)] + [(f, r, True) for f, r in zip(fracs, rates)]:
+        n = int(rate * SERVE_LEG_S)
+        offs = np.cumsum(rng.exponential(1.0 / rate, size=n))
+        kinds = rng.random(n) < 0.7
+        sched = [(float(offs[i]), pick(rng) if kinds[i] else None) for i in range(n)]
+        nxt = iter(range(n))
+        lat_read: list = []
+        pending: list = []
+        t0 = time.perf_counter() + 0.05
+
+        def arrive():
+            while True:
+                with lock:
+                    i = next(nxt, None)
+                if i is None:
+                    return
+                t_arr, key = sched[i]
+                now = time.perf_counter()
+                if now < t0 + t_arr:
+                    time.sleep(t0 + t_arr - now)
+                if key is not None:
+                    got = door.read_keys([key])
+                    dt = time.perf_counter() - (t0 + t_arr)
+                    check_read(key, got)
+                    with lock:
+                        lat_read.append(dt)
+                else:
+                    k = f"{tag}-ol{rate}/{i}"
+                    tks = tickets_of(door.mutate_async("add", [k, i]))
+                    with lock:
+                        pending.append((k, i, tks, t0 + t_arr))
+
+        run_threads([arrive] * SERVE_WORKERS, SERVE_LEG_S * 40 + 120)
+        lat_write = []
+        for k, i, tks, t_arr in pending:
+            for tk in tks:
+                tk.result(120)
+            lat_write.append(max(tk.t_done for tk in tks) - t_arr)
+            written[k] = i
+        achieved = n / (time.perf_counter() - t0)
+        if not measured:
+            log(f"[serve] {tag}: unmeasured soak at {rate}/s done")
+            continue
+        entry = {"capacity_fraction": frac, "target_ops_per_sec": rate, "achieved_ops_per_sec": achieved,
+                 "read": pct_ms(lat_read), "write": pct_ms(lat_write)}
+        out["rates"][str(frac)] = entry
+        log(f"[serve] {tag} open loop at {rate}/s ({int(frac * 100)}% of capacity): achieved {achieved:.3f}/s; read "
+            f"p50 {entry['read']['p50_ms']:.3f} p99 {entry['read']['p99_ms']:.3f} ms (n {entry['read']['n']}); write "
+            f"p50 {entry['write']['p50_ms']:.3f} p99 {entry['write']['p99_ms']:.3f} ms (n {entry['write']['n']}) "
+            f"on {device_name}")
+    want.update(written)
+    out["reads_checked"] = checked[0]
+    return out
+
+
+def wait_equal_canonical(reps, deadline: float, what: str) -> bytes:
+    while True:
+        cs = [r.canonical_state_bytes() for r in reps]
+        if all(c == cs[0] for c in cs):
+            return cs[0]
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: replicas did not converge to equal canonical bytes")
+        time.sleep(0.1)
+
+
+def check_written(door_reads, reps_reads, written: dict, tag: str) -> None:
+    """Every acknowledged write reads back: ``written`` through the front
+    door's snapshot reads and each replica's locked ``read_keys``, in
+    4096-key chunks."""
+    keys = list(written)
+    for s in range(0, len(keys), 4096):
+        chunk = keys[s : s + 4096]
+        exp = {k: written[k] for k in chunk}
+        for name, fn in [("front door", door_reads)] + reps_reads:
+            got = fn(chunk)
+            if got != exp:
+                bad = [k for k in chunk if got.get(k, "<absent>") != exp[k]][:4]
+                raise AssertionError(f"{tag}: {name} reads {[(k, got.get(k)) for k in bad]}, written {[(k, exp[k]) for k in bad]}")
+
+
+def trace_serving(fd, read_keys: list, logdir: Path, device_name: str) -> dict:
+    """One admission commit (``SERVE_COMMIT_OPS`` queued writes) and one
+    ``read_keys`` of ``read_keys`` under the port's ``tracing.trace``:
+    wall time, device busy time and idle share, the top torch ops by
+    device time and the replica spans the trace holds."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from delta_crdt_ex_tpu_torch.runtime import tracing
+
+    torch.cuda.synchronize()
+    with tracing.trace(str(logdir), cuda=True) as prof:
+        t0 = time.perf_counter()
+        tks = [fd.mutate_async("add", [f"serve-traced{i}", i]) for i in range(SERVE_COMMIT_OPS)]
+        for tk in tks:
+            tk.result(120)
+        got = fd.read_keys(read_keys)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the serving trace recorded no device time")
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    names = {e.key for e in prof.key_averages()}
+    spans = sorted(n for n in names if n.startswith("crdt."))
+    if "crdt.flush" not in spans:
+        raise AssertionError(f"the serving trace holds no crdt.flush span: {spans}")
+    trace_file = logdir / "trace.json"
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms, "ops": ops[:8],
+           "spans": spans, "trace_bytes": trace_file.stat().st_size, "read_found": len(got)}
+    log(f"[serve-trace] one {SERVE_COMMIT_OPS}-op admission commit + one {len(read_keys)}-key read_keys: wall "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share {out['idle_share']:.4f}); spans {spans}; "
+        f"device ms by op {[(k, round(v, 3)) for k, v in ops[:8]]}; Chrome trace {out['trace_bytes']} B on {device_name}")
+    return out
+
+
+def admission_parity(capacity: int, device_name: str, device: str) -> dict:
+    """Leg C: a fresh replica at 10a's geometry (``LogicalClock``, a fixed
+    node id, a WAL) takes a concurrent flood through its front door with
+    the journal on; an unloaded twin replays the journal through
+    ``apply_ops``. Seqs, canonical bytes, WAL bytes and every state
+    column must be bit-equal."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    root = WAL_ROOT / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    t = LocalTransport()
+    mk = lambda tag: dc.start_link(dc.AWLWWMap, threaded=False, transport=t, name=f"serve-par-{tag}", node_id=4242,
+                                   clock=LogicalClock(), capacity=capacity, wal_dir=str(root / tag), fsync_mode="none",
+                                   device=device)
+    a, b = mk("a"), mk("b")
+    try:
+        fd = a.frontdoor(max_commit_ops=SERVE_COMMIT_OPS, max_pending_ops=1 << 30, journal=True)
+        rng = np.random.default_rng(23)
+        pools = [rng.integers(1, 1 << 62, size=SERVE_PER_CLIENT, dtype=np.uint64).tolist()
+                 for _ in range(SERVE_PARITY_CLIENTS)]
+        t0 = time.perf_counter()
+        run_threads([lambda p=p: [fd.mutate("add", [int(k), int(k)], timeout=120) for k in p] for p in pools], 600)
+        flood_s = time.perf_counter() - t0
+        fd.close()
+        journal = fd.journal()
+        t0 = time.perf_counter()
+        for group in journal:
+            b.apply_ops(group)
+        replay_s = time.perf_counter() - t0
+        if a._seq != b._seq or a._seq != len(journal):
+            raise AssertionError(f"leg C: seqs {a._seq} / {b._seq} for {len(journal)} groups")
+        with a._lock, b._lock:
+            for f in dataclasses.fields(a.state):
+                va, vb = getattr(a.state, f.name), getattr(b.state, f.name)
+                if not (torch.equal(va, vb) if isinstance(va, torch.Tensor) else va == vb):
+                    raise AssertionError(f"leg C: loaded and twin state column {f.name} differ")
+        ca, cb = a.canonical_state_bytes(), b.canonical_state_bytes()
+        segs = lambda r: b"".join(p.read_bytes() for p in sorted(Path(r._wal.directory).iterdir()))
+        wa, wb = segs(a), segs(b)
+        if ca != cb or wa != wb:
+            raise AssertionError(f"leg C: canonical bytes equal {ca == cb}, WAL bytes equal {wa == wb}")
+        ops = sum(len(g) for g in journal)
+        if ops != SERVE_PARITY_CLIENTS * SERVE_PER_CLIENT:
+            raise AssertionError(f"leg C: the journal holds {ops} ops")
+        out = {"groups": len(journal), "ops": ops, "wal_bytes": len(wa), "canonical_bytes": len(ca),
+               "flood_s": flood_s, "replay_s": replay_s}
+        log(f"[serve] 10a leg C: {ops} ops from {SERVE_PARITY_CLIENTS} clients committed in {len(journal)} groups "
+            f"({flood_s:.3f} s); the twin's replay ({replay_s:.3f} s) is bit-equal: state columns, canonical bytes "
+            f"({len(ca)} B), WAL bytes ({len(wa)} B) on {device_name}")
+        return out
+    finally:
+        a.stop()
+        b.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def obs_overhead_and_shed(capacity: int, device_name: str, device: str) -> dict:
+    """The ``obs=True`` overhead (the same 1024-op batches on a replica
+    with a plane and one without, in turns; the plane's bridge is
+    detached while the plane-less one runs, so it pays exactly what
+    ``obs=None`` pays) and leg E: a write spike sheds explicitly and
+    ``/healthz`` answers 503 over HTTP, then 200 once it drains."""
+    import urllib.error
+    import urllib.request
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.serve import Overloaded
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    plane = dc.Observability()
+    t = LocalTransport()
+    on = dc.start_link(dc.AWLWWMap, threaded=False, transport=t, name="serve-obs-on", obs=plane,
+                       capacity=capacity, device=device)
+    off = dc.start_link(dc.AWLWWMap, threaded=False, transport=t, name="serve-obs-off", capacity=capacity,
+                        device=device)
+    out: dict = {}
+    try:
+        dt = {"on": [], "off": []}
+        for i in range(OBS_BATCHES + 1):
+            for side, rep in (("on", on), ("off", off)) if i % 2 else (("off", off), ("on", on)):
+                (plane.bridge.attach if side == "on" else plane.bridge.detach)()
+                items = [[f"obs{i}/{j}", j] for j in range(1024)]
+                t0 = time.perf_counter()
+                rep.mutate_batch("add", items, timeout=120)
+                if i:  # the first round warms both
+                    dt[side].append(time.perf_counter() - t0)
+        plane.bridge.attach()
+        med = {k: float(np.median(v)) for k, v in dt.items()}
+        out["obs_overhead"] = {"on_ms": [x * 1e3 for x in dt["on"]], "off_ms": [x * 1e3 for x in dt["off"]],
+                               "median_on_ms": med["on"] * 1e3, "median_off_ms": med["off"] * 1e3,
+                               "ratio": med["on"] / med["off"]}
+        last = [f"obs{OBS_BATCHES}/{j}" for j in range(0, 1024, 97)]
+        if on.read_keys(last) != off.read_keys(last) or len(off.read_keys(last)) != len(last):
+            raise AssertionError("obs overhead: a batch did not land")
+        log(f"[serve] obs=True overhead: {OBS_BATCHES} 1024-op batches in turns, median {med['on'] * 1e3:.3f} ms "
+            f"with the plane against {med['off'] * 1e3:.3f} ms without (ratio {med['on'] / med['off']:.4f}) on "
+            f"{device_name}")
+
+        fd = on.frontdoor(max_pending_ops=32, max_commit_ops=32, shed_health_hold=2.0)
+        for i in range(16):
+            fd.mutate("add", [f"warm{i}", i], timeout=120)
+        server = plane.serve(port=0)
+
+        def healthz() -> int:
+            try:
+                with urllib.request.urlopen(server.url + "/healthz", timeout=30) as r:
+                    return r.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        if healthz() != 200:
+            raise AssertionError("leg E: /healthz is not 200 before the spike")
+        shed = [0]
+        acked: list = []
+        lock = threading.Lock()
+
+        def spike(i):
+            for j in range(400):
+                try:
+                    tk = fd.mutate_async("add", [f"spike{i}/{j}", j])
+                except Overloaded:
+                    with lock:
+                        shed[0] += 1
+                    continue
+                with lock:
+                    acked.append((f"spike{i}/{j}", j, tk))
+
+        run_threads([lambda i=i: spike(i) for i in range(4)], 300)
+        code_during = healthz()
+        t_spike = time.perf_counter()
+        if shed[0] == 0 or code_during != 503:
+            raise AssertionError(f"leg E: {shed[0]} ops shed, /healthz {code_during} under the spike")
+        code_after = 0
+        while time.perf_counter() - t_spike < 60:
+            code_after = healthz()
+            if code_after == 200:
+                break
+            time.sleep(0.05)
+        if code_after != 200:
+            raise AssertionError("leg E: /healthz never recovered after the spike")
+        recover_s = time.perf_counter() - t_spike
+        for _k, _j, tk in acked:
+            tk.result(120)
+        want = {k: j for k, j, _tk in acked}
+        if fd.read_keys(list(want)) != want or on.read_keys([f"spike0/{j}" for j in range(400)]).keys() - want.keys():
+            raise AssertionError("leg E: an acknowledged spike write does not read back, or a shed one does")
+        st = fd.stats()
+        out["overload"] = {"spike_ops": 1600, "shed_ops": shed[0], "acked_ops": len(acked),
+                           "shed_by_reason": st["shed_by_reason"], "healthz_under_overload": code_during,
+                           "healthz_recovered": code_after, "recover_s": recover_s}
+        log(f"[serve] 10a leg E: a 4 x 400 spike against a 32-op window shed {shed[0]} ops ({st['shed_by_reason']}), "
+            f"acked {len(acked)} all read back; /healthz 200 -> {code_during} -> {code_after} after "
+            f"{recover_s:.3f} s on {device_name}")
+        return out
+    finally:
+        on.stop()
+        off.stop()
+        plane.close()
+
+
+def serve_binned(reps, transport, want: dict, n_keys: int, device_name: str, device: str = "cuda") -> dict:
+    """Phase 10a on phase 3b's loaded pair (the default store at 2^20
+    keys): leg A (grouped admission against the per-op ``mutate`` loop,
+    64 clients x 150 ops), leg B (snapshot reads while the replica lock
+    is held), the open-loop mix at 30% and 70% of capacity, the
+    ``obs=True`` overhead and leg E on fresh replicas of the same
+    geometry, leg C on a fresh pair, one profiler trace; then every
+    acknowledged write reads back from both replicas and the pair
+    converges to equal canonical bytes."""
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    r1, r2 = reps
+    t_leg = time.perf_counter()
+    for r in reps:
+        r.sync_interval = SERVE_SYNC_INTERVAL
+    capacity = 2 * n_keys
+    probe_lookup_kernel.reset()  # 10a's run starts here: this path launches neither kernel
+    batched_roots_kernel.reset()
+    fd = r1.frontdoor(max_commit_ops=SERVE_COMMIT_OPS, max_pending_ops=1 << 30)
+    written: dict = {}
+    out: dict = {"keys": n_keys}
+    rng = np.random.default_rng(7)
+
+    # leg A: grouped admission against the per-op mutate loop
+    pools = [rng.integers(1, 1 << 62, size=SERVE_PER_CLIENT, dtype=np.uint64).tolist() for _ in range(2 * SERVE_CLIENTS)]
+    warm = [rng.integers(1, 1 << 62, size=8, dtype=np.uint64).tolist() for _ in range(SERVE_CLIENTS)]
+    flood = lambda target, ps: run_threads([lambda p=p: [target(int(k)) for k in p] for p in ps], 900)
+    flood(lambda k: r1.mutate("add", [k, k], timeout=300), warm)
+    flood(lambda k: fd.mutate("add", [k, k], timeout=300), warm)
+    dt_po = flood(lambda k: r1.mutate("add", [k, k], timeout=300), pools[:SERVE_CLIENTS])
+    dt_gr = flood(lambda k: fd.mutate("add", [k, k], timeout=300), pools[SERVE_CLIENTS:])
+    for p in warm + pools:
+        written.update({int(k): int(k) for k in p})
+    n_ops = SERVE_CLIENTS * SERVE_PER_CLIENT
+    st = fd.stats()
+    out["admission"] = {"clients": SERVE_CLIENTS, "ops": n_ops, "per_op_ops_per_sec": n_ops / dt_po,
+                        "grouped_ops_per_sec": n_ops / dt_gr, "ratio": dt_po / dt_gr,
+                        "ops_per_commit": st["ops_per_commit"], "commits": st["commits"]}
+    log(f"[serve] 10a leg A: {SERVE_CLIENTS} clients x {SERVE_PER_CLIENT} ops on the {n_keys}-key map: grouped admission "
+        f"{n_ops / dt_gr:.3f} ops/s ({st['ops_per_commit']} ops a commit) against the per-op mutate loop "
+        f"{n_ops / dt_po:.3f} ops/s, ratio {dt_po / dt_gr:.3f} on {device_name}")
+
+    # leg B: snapshot reads while the replica lock is held
+    probe = [int(pools[0][0]), int(pools[SERVE_CLIENTS][0])]
+    fd.read_keys(probe)
+    got: list = []
+    with r1._lock:
+        th = threading.Thread(target=lambda: [got.append(fd.read_keys(probe)) for _ in range(20)])
+        th.start()
+        th.join(timeout=60)
+        if th.is_alive() or len(got) != 20 or any(g != {k: k for k in probe} for g in got):
+            raise AssertionError("leg B: snapshot reads blocked on the held replica lock or read wrong")
+    out["lock_free_reads"] = 20
+    log(f"[serve] 10a leg B: 20 snapshot read_keys finished while replica 1's lock was held on {device_name}")
+
+    # the open-loop mix; reads over the loaded keys and the hot pool
+    read_pool = [f"key{i}" for i in range(n_keys)]
+    want.update(written)
+    out["open_loop"] = open_loop(fd, read_pool, want, written, "10a", SERVE_RATE_FRACS, rng, device_name)
+
+    if device == "cuda":
+        out["trace"] = trace_serving(fd, [f"key{i}" for i in range(0, n_keys, max(1, n_keys // 2048))][:2048],
+                                     TRACE_ROOT / "serve_binned", device_name)
+        written.update({f"serve-traced{i}": i for i in range(SERVE_COMMIT_OPS)})
+    want.update(written)
+    out["parity"] = admission_parity(capacity, device_name, device)
+    out.update(obs_overhead_and_shed(capacity, device_name, device))
+
+    # every acknowledged write reads back from both replicas, and the
+    # pair converges
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    c = wait_equal_canonical([r1, r2], deadline, "10a")
+    check_written(fd.read_keys, [("replica 1", r1.read_keys), ("replica 2", r2.read_keys)], written, "10a")
+    sample = read_pool[::997]
+    exp = {k: want[k] for k in sample if k in want}
+    if fd.read_keys(sample) != exp or r2.read_keys(sample) != exp:
+        raise AssertionError("10a: the loaded keys no longer read as written")
+    out["written"] = len(written)
+    out["canonical_bytes"] = len(c)
+    out["frontdoor"] = {k: v for k, v in fd.stats().items() if k != "commit_depth_hist"}
+    out["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                       batched_roots_kernel.name: batched_roots_kernel.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"10a: a kernel was launched on the binned serving path: {out['launches']}")
+    out["leg_s"] = time.perf_counter() - t_leg
+    log(f"[serve] 10a: {len(written)} acknowledged writes read back from both replicas; canonical bytes equal "
+        f"({len(c)} B); {out['frontdoor']['reads']} snapshot reads, {out['frontdoor']['read_retries']} retries, "
+        f"{out['frontdoor']['strong_read_fallbacks']} strong fallbacks; kernel launches {out['launches']}; "
+        f"{out['leg_s']:.3f} s on {device_name}")
+    return out
+
+
+def serve_hash(reps, logs, want: dict, n_keys: int, device_name: str, device: str = "cuda") -> dict:
+    """Phase 10b on phase 3's pair (the hash store at 2^17 keys, an
+    ``on_diffs`` feed on each replica): the open-loop mix at 30% of
+    capacity through replica 1's front door — its snapshot reads launch
+    the probe kernel from the client threads, its admission commits from
+    the admission worker — then every shape launched held bit-equal to
+    the plain version on the pinned snapshot's own table, and every
+    acknowledged write read back from both replicas and on replica 2's
+    feed."""
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    r1, r2 = reps
+    t_leg = time.perf_counter()
+    for r in reps:
+        r.sync_interval = SERVE_SYNC_INTERVAL
+    probe_lookup_kernel.reset()  # 10b's run starts here
+    batched_roots_kernel.reset()
+    fd = r1.frontdoor(max_commit_ops=SERVE_COMMIT_OPS, max_pending_ops=1 << 30)
+    written: dict = {}
+    rng = np.random.default_rng(13)
+    out = {"keys": n_keys}
+    out["open_loop"] = open_loop(fd, [f"key{i}" for i in range(n_keys)], want, written, "10b",
+                                 SERVE_RATE_FRACS[:1], rng, device_name)
+    out["launches"] = probe_lookup_kernel.launches
+    out["launches_by_shape"] = probe_shape_launches()
+    roots = batched_roots_kernel.launches
+    if (device == "cuda" and out["launches"] <= 0) or roots:
+        raise AssertionError(f"10b: probe launches {out['launches']}, roots launches {roots}")
+    # launches below compare the kernel with its plain version on the
+    # pinned snapshot's own table, at every Q the leg launched at; they
+    # are not the path's
+    st = fd.snapshot().store
+    shapes = [tuple(int(x) for x in k.split("x")) for k in out["launches_by_shape"]]
+    if any((H, W) != (st.table_size, st.probe_window) for H, W, _q in shapes):
+        raise AssertionError(f"10b: launches {out['launches_by_shape']} are not all on the pinned table "
+                             f"({st.table_size}, {st.probe_window})")
+    out["table_max_abs_err"] = check_main_tables(
+        [("10b's pinned snapshot", st)], n_keys, [f"key{i}" for i in range(0, n_keys, 100)],
+        extra=[f"prop{i}" for i in range(10)] + list(written), q_sizes=sorted({q for _h, _w, q in shapes}))
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    logs[1].wait(lambda d: all(d.view.get(k) == v for k, v in written.items()), deadline, "10b writes on replica 2's feed")
+    c = wait_equal_canonical([r1, r2], deadline, "10b")
+    check_written(fd.read_keys, [("replica 1", r1.read_keys), ("replica 2", r2.read_keys)], written, "10b")
+    out["written"] = len(written)
+    out["canonical_bytes"] = len(c)
+    out["leg_s"] = time.perf_counter() - t_leg
+    log(f"[serve] 10b: {len(written)} acknowledged writes read back from both replicas and on replica 2's feed; "
+        f"canonical bytes equal ({len(c)} B); probe launches {out['launches']} by HxWxQ {out['launches_by_shape']}; "
+        f"{out['leg_s']:.3f} s on {device_name}")
+    return out
+
+
+def serve_fleet(device_name: str, device: str = "cuda") -> dict:
+    """Phase 10c: a threaded 4-member fleet (ring neighbours) behind its
+    front door: ``SERVE_FLEET_KEYS`` keys routed in, the open-loop mix at
+    30% of capacity, then every member's full read equals the written
+    map."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    t_leg = time.perf_counter()
+    probe_lookup_kernel.reset()  # 10c's run starts here: this path launches neither kernel
+    batched_roots_kernel.reset()
+    fleet = dc.start_fleet(SERVE_FLEET_N, transport=LocalTransport(), names=[f"serve-f{i}" for i in range(SERVE_FLEET_N)],
+                           capacity=4 * SERVE_FLEET_KEYS, sync_interval=SERVE_SYNC_INTERVAL, max_sync_size=1024,
+                           sync_timeout=600.0,
+                           device=device)
+    out: dict = {"members": SERVE_FLEET_N, "keys": SERVE_FLEET_KEYS}
+    try:
+        for i, rep in enumerate(fleet.replicas):
+            rep.set_neighbours([fleet.replicas[(i + 1) % SERVE_FLEET_N]])
+        ffd = dc.frontdoor(fleet, max_commit_ops=SERVE_COMMIT_OPS, max_pending_ops=1 << 30)
+        t0 = time.perf_counter()
+        tks = [tk for i in range(SERVE_FLEET_KEYS) for tk in ffd.mutate_async("add", [f"key{i}", i])]
+        for tk in tks:
+            tk.result(300)
+        out["preload_s"] = time.perf_counter() - t0
+        want = {f"key{i}": i for i in range(SERVE_FLEET_KEYS)}
+        written = dict(want)
+        rng = np.random.default_rng(17)
+        out["open_loop"] = open_loop(ffd, list(want), want, written, "10c", SERVE_RATE_FRACS[:1], rng, device_name)
+        deadline = time.perf_counter() + SLICE_BUDGET_S
+        t0 = time.perf_counter()
+        while True:
+            views = [ffd.read(m) for m in range(SERVE_FLEET_N)]
+            if all(v == want for v in views):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"10c: members hold {[len(v) for v in views]} keys, the written map {len(want)}")
+            time.sleep(0.2)
+        out["converge_s"] = time.perf_counter() - t0
+        check_written(ffd.read_keys, [(f"member {m}", fleet.replicas[m].read_keys) for m in range(SERVE_FLEET_N)],
+                      written, "10c")
+        out["fleet"] = {k: fleet.stats()[k] for k in ("dispatches", "avg_occupancy", "fallbacks")}
+        out["written"] = len(written)
+        out["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                           batched_roots_kernel.name: batched_roots_kernel.launches}
+        if any(out["launches"].values()):
+            raise AssertionError(f"10c: a kernel was launched on the binned fleet serving path: {out['launches']}")
+    finally:
+        fleet.stop()
+    out["leg_s"] = time.perf_counter() - t_leg
+    log(f"[serve] 10c: {SERVE_FLEET_N}-member fleet, {SERVE_FLEET_KEYS} keys routed in ({out['preload_s']:.3f} s); "
+        f"every member reads the written map ({len(want)} keys) {out['converge_s']:.3f} s after the mix; fleet "
+        f"{out['fleet']}; {out['leg_s']:.3f} s on {device_name}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
@@ -2628,7 +3295,14 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"[env] card: {name_power}")
     phase_build()
+    serve_b = lambda reps, t, want: serve_binned(reps, t, want, args.keys, name_power)
+    serve_h = lambda reps, logs, want: serve_hash(reps, logs, want, args.keys // 8, name_power)
     if args.only:
+        if "10" in args.only:
+            m = phase_slice(args.keys // 8, serve=serve_h)
+            b = phase_binned(args.keys, name_power, serve=serve_b)
+            log("[serve-metrics] " + json.dumps({"10a": b.pop("serve"), "10b": m.pop("serve"),
+                                                 "10c": serve_fleet(name_power)}))
         if "4" in args.only:
             phase_cuda_vs_cpu()
         if "7" in args.only:
@@ -2652,14 +3326,20 @@ def main() -> int:
     phase_t = {"1-2": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
     # phase 3 runs at an eighth of the key count (2^17 by default) so
-    # that the whole run, phase 8 included, stays inside its time limit
-    m = phase_slice(args.keys // 8)
-    phase_t["3"] = time.perf_counter() - t_phase
+    # that the whole run, phase 8 included, stays inside its time limit;
+    # phases 10b and 10a serve from the loaded pairs of 3 and 3b
+    m = phase_slice(args.keys // 8, serve=serve_h)
+    sv = {"10b": m.pop("serve")}
+    phase_t["3"] = time.perf_counter() - t_phase - sv["10b"]["leg_s"]
     log("[slice-metrics] " + json.dumps(m))
     t_phase = time.perf_counter()
-    b = phase_binned(args.keys, name_power)
-    phase_t["3b"] = time.perf_counter() - t_phase
+    b = phase_binned(args.keys, name_power, serve=serve_b)
+    sv["10a"] = b.pop("serve")
+    phase_t["3b"] = time.perf_counter() - t_phase - sv["10a"]["leg_s"]
     log("[binned-metrics] " + json.dumps(b))
+    sv["10c"] = serve_fleet(name_power)
+    phase_t["10"] = sv["10a"]["leg_s"] + sv["10b"]["leg_s"] + sv["10c"]["leg_s"]
+    log("[serve-metrics] " + json.dumps(sv))
     probe["max_abs_err"] = max(probe["max_abs_err"], m["table_max_abs_err"])
     t_phase = time.perf_counter()
     phase_cuda_vs_cpu()
@@ -2689,11 +3369,15 @@ def main() -> int:
     log("[env] seconds by phase " + json.dumps({k: round(v, 3) for k, v in phase_t.items()}))
     # each hash-store path's launches were held against the plain
     # version on its own tables at the Q it launched at
-    probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"])
+    probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"],
+                               sv["10b"]["table_max_abs_err"])
     probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
                                  "durability_hash": du["8b"]["probe_launches"],
                                  "tcp_hash": tc["9b"]["launches"][probe_lookup_kernel.name],
-                                 "tcp_fleet": tc["9c"]["launches"][probe_lookup_kernel.name]}
+                                 "tcp_fleet": tc["9c"]["launches"][probe_lookup_kernel.name],
+                                 "serve_hash": sv["10b"]["launches"],
+                                 "serve_binned": sv["10a"]["launches"][probe_lookup_kernel.name],
+                                 "serve_fleet": sv["10c"]["launches"][probe_lookup_kernel.name]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     # the replica paths' launches by the exact shape they ran at, each
     # row's launches and loss from its own shape: the headline rows take
@@ -2703,7 +3387,7 @@ def main() -> int:
     for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
         for k, n in du["8b"][when]["probe_by_shape"].items():
             by_shape[k] = by_shape.get(k, 0) + n
-    for k, n in tc["9b"]["probe_by_shape"].items():
+    for k, n in list(tc["9b"]["probe_by_shape"].items()) + list(sv["10b"]["launches_by_shape"].items()):
         by_shape[k] = by_shape.get(k, 0) + n
     head_keys = set()
     for row in probe["shapes"]:
@@ -2716,7 +3400,8 @@ def main() -> int:
         raise AssertionError(f"probe launches by shape {by_shape} are not all in the timed rows")
     roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
     roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"],
-                                 "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0}
+                                 "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0,
+                                 "serve": 0}
     roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

@@ -22,14 +22,19 @@ crash recovery with the node id and counters kept, fault points on
 every commit boundary, and the seeded ``SimNetwork``; and the cross-host
 ``TcpTransport`` on the JAX package's wire, log-shipping catch-up
 (``GetLogMsg``/``LogChunkMsg``, on by default) and fleet frames, so a
-JAX replica and a torch replica run in one cluster. See ``ROADMAP.md``
-for what comes next.
+JAX replica and a torch replica run in one cluster; and the serving
+front door (``frontdoor(crdt)``: lock-free snapshot reads that launch
+the probe kernel on the hash store, coalesced write admission with
+shedding) and the observability plane (``obs=``: metrics, the flight
+recorder, the lag tracer, ``/metrics`` ``/healthz`` ``/varz``, profiler
+spans). See ``ROADMAP.md`` for what comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (
     AWLWWMap,
     DeltaCrdt,
     child_spec,
+    frontdoor,
     mutate,
     mutate_async,
     mutate_batch,
@@ -42,7 +47,10 @@ from delta_crdt_ex_tpu_torch.api import (
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
 from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
+from delta_crdt_ex_tpu_torch.runtime.metrics import Observability
+from delta_crdt_ex_tpu_torch.runtime.obs_server import ObsServer
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
+from delta_crdt_ex_tpu_torch.runtime.serve import FleetFrontdoor, Frontdoor, Overloaded
 from delta_crdt_ex_tpu_torch.runtime.simnet import SimNetwork
 from delta_crdt_ex_tpu_torch.runtime.storage import FileStorage, MemoryStorage, Storage
 from delta_crdt_ex_tpu_torch.runtime.tcp_transport import TcpTransport
@@ -57,15 +65,21 @@ __all__ = [
     "DeltaCrdt",
     "FileStorage",
     "Fleet",
+    "FleetFrontdoor",
+    "Frontdoor",
     "HashAWLWWMap",
     "HashAWSet",
     "MemoryStorage",
+    "Observability",
+    "ObsServer",
+    "Overloaded",
     "Replica",
     "SimNetwork",
     "Storage",
     "TcpTransport",
     "WalLog",
     "child_spec",
+    "frontdoor",
     "mutate",
     "mutate_async",
     "mutate_batch",

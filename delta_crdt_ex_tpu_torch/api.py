@@ -1,7 +1,8 @@
 """Public API facade of the PyTorch port — parity with ``DeltaCrdt``
 (``lib/delta_crdt.ex``) and with ``delta_crdt_ex_tpu/api.py``:
 ``start_link``, ``start_fleet``, ``child_spec``, ``set_neighbours``,
-``mutate``, ``mutate_async``, ``mutate_batch``, ``read``, ``read_keys``.
+``mutate``, ``mutate_async``, ``mutate_batch``, ``read``, ``read_keys``,
+``frontdoor``.
 
 Example (the reference doctest flow, ``delta_crdt.ex:17-28``)::
 
@@ -24,6 +25,7 @@ from typing import Any
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
 from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet, check_unported
+from delta_crdt_ex_tpu_torch.runtime.metrics import resolve_obs
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
 DEFAULT_SYNC_INTERVAL = 0.2  # seconds (reference: 200 ms, delta_crdt.ex:31)
@@ -84,7 +86,13 @@ def start_link(
     ``(name, (host, port))`` addresses and JAX-package replicas may
     join. With a ``wal_dir``, a lagging peer catches up by log shipping
     (``log_shipping=True``, ``catchup_chunk_rows=1024``,
-    ``catchup_suffix_ratio=4.0``: the JAX package's defaults)."""
+    ``catchup_suffix_ratio=4.0``: the JAX package's defaults).
+    ``obs=True`` joins the process-wide observability plane (metrics,
+    the flight recorder, the lag tracer, ``/metrics`` ``/healthz``
+    ``/varz`` through ``obs.serve()``); pass an
+    :class:`~delta_crdt_ex_tpu_torch.runtime.metrics.Observability` for
+    a plane of your own, and ``flight_dump_path`` to keep the flight
+    ring as JSON lines when the replica crashes."""
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     replica = Replica(_resolve_store(crdt_module, store), **opts)
@@ -116,11 +124,14 @@ def start_fleet(
     :class:`~delta_crdt_ex_tpu_torch.runtime.fleet.Fleet`, whose
     ``.replicas`` are ordinary replica handles. ``threaded=False``
     leaves driving to the caller (``fleet.tick()`` / ``fleet.drain()``
-    and ``fleet.sync_tick()`` or ``fleet.run_duties()``). ``mesh=`` and
-    ``obs=`` raise: they come with later slices."""
+    and ``fleet.sync_tick()`` or ``fleet.run_duties()``). ``obs=``
+    registers the fleet and every member on the plane; ``mesh=`` raises:
+    it comes with a later slice."""
     if names is not None and len(names) != n:
         raise ValueError(f"{len(names)} names for {n} replicas")
-    check_unported(obs=opts.pop("obs", None), mesh=opts.pop("mesh", None))
+    # one plane for every member and the fleet (resolved once)
+    obs = resolve_obs(opts.pop("obs", None))
+    check_unported(mesh=opts.pop("mesh", None))
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     crdt_module = _resolve_store(crdt_module, store)
@@ -129,8 +140,8 @@ def start_fleet(
         member = dict(opts)
         if names is not None:
             member["name"] = names[i]
-        replicas.append(Replica(crdt_module, **member))
-    fleet = Fleet(replicas, min_batch=min_batch)
+        replicas.append(Replica(crdt_module, obs=obs, **member))
+    fleet = Fleet(replicas, min_batch=min_batch, obs=obs)
     if threaded:
         fleet.start()
     return fleet
@@ -176,3 +187,32 @@ def read(crdt: Replica, timeout: float = DEFAULT_TIMEOUT) -> "dict[Any, Any]":
 def read_keys(crdt: Replica, keys: list) -> "dict[Any, Any]":
     """Partial read (reference ``AWLWWMap.read/2``)."""
     return crdt.read_keys(keys)
+
+
+def frontdoor(crdt, **opts):
+    """The serving front door of a replica or a fleet
+    (``delta_crdt_ex_tpu/api.py:341``), created on first use and cached
+    on the target:
+
+    - lock-free snapshot reads: ``fd.read_keys(keys)`` / ``fd.read()`` /
+      ``fd.scan(prefix)`` run off a published store generation without
+      taking the replica lock (on the hash store ``read_keys`` launches
+      the probe-window kernel); ``Replica.read(timeout)`` stays the
+      strong flush-then-read mode;
+    - coalesced write admission: ``fd.mutate(f, args)`` /
+      ``fd.mutate_async(f, args)`` fold concurrent clients' ops into one
+      grouped commit per admission window through ``Replica.apply_ops``,
+      the entrance ``mutate_batch`` uses;
+    - backpressure: past the admission-queue, mailbox, TCP
+      ``queue_bytes`` or WAL-backlog limits an op is shed with
+      :class:`~delta_crdt_ex_tpu_torch.runtime.serve.Overloaded`, and
+      the plane's ``/healthz`` check reads 503 until it drains.
+
+    ``crdt`` may be a :class:`Replica` (a
+    :class:`~delta_crdt_ex_tpu_torch.runtime.serve.Frontdoor`) or a
+    :class:`Fleet` (one front door per member with key-hash routing).
+    Options (``max_commit_ops``, ``max_pending_ops``,
+    ``max_mailbox_depth``, ``max_queue_bytes``, ``max_wal_backlog``,
+    ``shed_health_hold``, ``read_retries``, ``journal``) are fixed at
+    first creation."""
+    return crdt.frontdoor(**opts)

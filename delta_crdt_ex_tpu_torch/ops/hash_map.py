@@ -33,6 +33,7 @@ the plain torch :func:`probe_lookup_ref`.
 from __future__ import annotations
 
 import ctypes
+import threading
 import dataclasses
 from typing import NamedTuple
 
@@ -798,21 +799,32 @@ class ProbeLookupKernel:
     ``launches`` counts launches and ``launches_by_shape`` counts them by
     (H, W, Q): the table's lanes, its probe window and the wire tier of
     the caller's batch; the wrapper builds the library at first use and
-    raises on any launch error."""
+    raises on any launch error. Client threads, admission
+    workers and event loops launch it side by side, so the counts move
+    under one lock."""
 
     name = "probe_lookup"
     source = "delta_crdt_ex_tpu_torch/csrc/probe.cu"
     replaces = "delta_crdt_ex_tpu/ops/hash_map.py:873"
 
     def __init__(self) -> None:
+        self._count_lock = threading.Lock()
         self.launches = 0
         self.launches_by_shape: dict[tuple[int, int, int], int] = {}
         self._lib = None
 
     def reset(self) -> None:
         """Zero the launch counts."""
-        self.launches = 0
-        self.launches_by_shape = {}
+        with self._count_lock:
+            self.launches = 0
+            self.launches_by_shape = {}
+
+    def _count(self, shape: tuple) -> None:
+        """Count one launch at ``shape`` (called right after the launch
+        succeeded, and from nowhere else)."""
+        with self._count_lock:
+            self.launches += 1
+            self.launches_by_shape[shape] = self.launches_by_shape.get(shape, 0) + 1
 
     def group(self, window: int) -> int:
         """Threads per query the kernel runs for a window of ``window``
@@ -879,8 +891,7 @@ class ProbeLookupKernel:
             raise RuntimeError(
                 f"probe_lookup kernel launch failed: {lib.probe_error_string(err).decode()}"
             )
-        self.launches += 1
-        self.launches_by_shape[(H, W, Q)] = self.launches_by_shape.get((H, W, Q), 0) + 1
+        self._count((H, W, Q))
         return out
 
 

@@ -13,6 +13,7 @@ probe and no fallback.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -65,13 +66,16 @@ class BatchedRootsKernel:
 
     ``launches`` counts launches and ``launches_by_shape`` counts them by
     (N, L); the wrapper builds the library at first use and raises on
-    any launch error, a refused cluster launch included."""
+    any launch error, a refused cluster launch included. Client threads, admission
+    workers and event loops launch it side by side, so the counts move
+    under one lock."""
 
     name = "batched_roots"
     source = "delta_crdt_ex_tpu_torch/csrc/roots.cu"
     replaces = "delta_crdt_ex_tpu/ops/pallas_tree.py:87"
 
     def __init__(self) -> None:
+        self._count_lock = threading.Lock()
         self.launches = 0
         self.launches_by_shape: dict[tuple[int, int], int] = {}
         self._lib = None
@@ -79,8 +83,16 @@ class BatchedRootsKernel:
 
     def reset(self) -> None:
         """Zero the launch counts."""
-        self.launches = 0
-        self.launches_by_shape = {}
+        with self._count_lock:
+            self.launches = 0
+            self.launches_by_shape = {}
+
+    def _count(self, shape: tuple) -> None:
+        """Count one launch at ``shape`` (called right after the launch
+        succeeded, and from nowhere else)."""
+        with self._count_lock:
+            self.launches += 1
+            self.launches_by_shape[shape] = self.launches_by_shape.get(shape, 0) + 1
 
     def _load(self):
         if self._lib is None:
@@ -132,8 +144,7 @@ class BatchedRootsKernel:
                 f"batched_roots kernel launch failed (cluster {c}): "
                 f"{lib.roots_error_string(err).decode()}"
             )
-        self.launches += 1
-        self.launches_by_shape[(n, L)] = self.launches_by_shape.get((n, L), 0) + 1
+        self._count((n, L))
         return out
 
 

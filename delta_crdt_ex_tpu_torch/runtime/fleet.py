@@ -35,10 +35,13 @@ due members' digest trees, eager-delta extractions and own-counter
 columns each run as one call per shape bucket, fanned back out through
 the replicas' own plan/emit bookkeeping.
 
-Not ported yet, each raising ``NotImplementedError`` naming its slice
-(``ROADMAP.md`` queue 1): ``mesh=`` (multi-device mesh); ``obs=``,
-:meth:`Fleet.frontdoor`, :meth:`Fleet.obs_varz` and :meth:`Fleet.health`
-(serving and observability). A sync tick's sends to a peer process
+The serving and observability planes: ``obs=`` registers the fleet's
+varz and health sources and a scrape-time collector (occupancy, fill,
+ticks, egress), :meth:`Fleet.frontdoor` is one front door per member
+with key-hash routing, :meth:`Fleet.health` checks the shared loop's
+tick freshness. Not ported yet: ``mesh=`` (the multi-device mesh
+slice), which raises ``NotImplementedError`` naming it (``ROADMAP.md``
+queue 1). A sync tick's sends to a peer process
 whose TCP connection negotiated fleet frames aggregate into ONE
 ``FleetFrameMsg`` per endpoint (:class:`_FrameCollector`), as in the
 JAX fleet. Port members have no relay epoch (tree gossip), so that step
@@ -59,6 +62,7 @@ import torch
 from delta_crdt_ex_tpu_torch.models.binned import pow2_tier
 from delta_crdt_ex_tpu_torch.models.binned_map import stack_entry_slices
 from delta_crdt_ex_tpu_torch.ops.binned import _i64
+from delta_crdt_ex_tpu_torch.runtime import metrics as metrics_mod
 from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica, _LaneLevels, _StackedLevels
 from delta_crdt_ex_tpu_torch.utils import transfers
@@ -135,13 +139,11 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
     )
 
 
-def check_unported(obs=None, mesh=None) -> None:
-    """Raise for the fleet options of later slices (``mesh=``,
-    ``obs=``); their off values pass."""
+def check_unported(mesh=None) -> None:
+    """Raise for the fleet option of a later slice (``mesh=``); its off
+    values pass."""
     if mesh is not None and mesh is not False:
         raise _later("the mesh-sharded fleet (mesh=)", "multi-device mesh")
-    if obs is not None:
-        raise _later("the fleet's observability plane (obs=)", "serving and observability")
 
 
 def _lane_slice(host, lane: int, rows: np.ndarray, tier: "int | None"):
@@ -205,7 +207,7 @@ class Fleet:
     """
 
     def __init__(self, replicas: list, *, min_batch: int = 2, obs=None, mesh=None):
-        check_unported(obs=obs, mesh=mesh)
+        check_unported(mesh=mesh)
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
         for r in replicas:
@@ -260,6 +262,9 @@ class Fleet:
         self._egress_tree_batched = 0
         self._egress_frames = 0
         self._egress_frame_members = 0
+        #: tick-freshness heartbeat for /healthz (a wedged fleet loop
+        #: goes stale)
+        self._tick_ts = time.monotonic()
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
@@ -267,6 +272,14 @@ class Fleet:
             # member notify() wakes the FLEET loop, not a per-replica one
             r.notify = self._member_notify  # type: ignore[method-assign]
             r._in_fleet = True
+        #: the observability plane: the fleet registers its own varz and
+        #: health sources and a scrape-time collector of its counters
+        #: (members register themselves through their own ``obs=``)
+        self._obs = metrics_mod.resolve_obs(obs)
+        #: the cached FleetFrontdoor (``frontdoor()``)
+        self._frontdoor = None
+        if self._obs is not None:
+            self._obs.register_fleet(self)
 
     def _member_notify(self) -> None:
         if self._thread is not None:
@@ -280,6 +293,10 @@ class Fleet:
         it — batched where compatible, per replica everywhere else.
         Returns the messages handled."""
         t0 = time.perf_counter()
+        with self._lock:
+            # refreshed every tick, busy or idle: readiness means "the
+            # loop is turning", not "traffic is flowing"
+            self._tick_ts = time.monotonic()
         per_member: list = []
         n_msgs = 0
         for rep in self.replicas:
@@ -758,23 +775,58 @@ class Fleet:
         member's goodbye sync is drained before the next member stops:
         the fleet is the loop that serves it, so the recipients merge
         (and log) it before their own WALs close."""
+        with self._lock:
+            fd, self._frontdoor = self._frontdoor, None
+        if fd is not None:
+            # close the serving plane first: its admission workers must
+            # not race member shutdown (outside the fleet lock: close
+            # joins threads)
+            fd.close()
         if self._thread is not None:
             self._stop.set()
             self._wake.set()
             self._thread.join(timeout=5)
             self._thread = None
+        if self._obs is not None:
+            self._obs.unregister_fleet(self)
         for rep in self.replicas:
             rep.stop()
             self.drain()
 
+    # ------------------------------------------------------------------
+    # serving plane
+
     def frontdoor(self, **opts):
-        raise _later("the fleet's serving front door", "serving and observability")
+        """The fleet's serving front door, created on first use and
+        cached: one :class:`~delta_crdt_ex_tpu_torch.runtime.serve.
+        Frontdoor` per member plus key-hash routing
+        (:class:`~delta_crdt_ex_tpu_torch.runtime.serve.FleetFrontdoor`).
+        Closed by :meth:`stop`."""
+        from delta_crdt_ex_tpu_torch.runtime.serve import FleetFrontdoor
+
+        with self._lock:
+            if self._frontdoor is None:
+                self._frontdoor = FleetFrontdoor(self, **opts)
+            elif opts:
+                raise ValueError("fleet front door already exists; options are fixed at first creation")
+            return self._frontdoor
 
     def obs_varz(self) -> dict:
-        raise _later("the fleet's /varz stanza", "serving and observability")
+        """The fleet's ``/varz`` stanza: the unchanged :meth:`stats` dict
+        under a typed envelope."""
+        return {"kind": "fleet", "stats": self.stats()}
 
     def health(self) -> dict:
-        raise _later("the fleet's /healthz readiness", "serving and observability")
+        """Readiness for ``/healthz``: the shared event loop's tick is
+        fresh (when threaded; deterministic drives pass). Member WAL and
+        neighbour checks ride each member's own ``Replica.health``."""
+        with self._lock:
+            tick_ts = self._tick_ts
+        ok = True
+        if self._thread is not None:
+            fresh = time.monotonic() - tick_ts < max(5 * min(r.sync_interval for r in self.replicas), 2.0)
+            ok = self._thread.is_alive() and fresh
+        return {"ok": ok, "loop_responsive": ok, "replicas": len(self.replicas)}
 
     # ------------------------------------------------------------------
     # observability

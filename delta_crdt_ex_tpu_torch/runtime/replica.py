@@ -41,6 +41,15 @@ carries, line for line the JAX replica's semantics:
   Snapshots and WAL records hold the JAX package's dtypes and orders,
   so either package recovers what the other wrote.
 
+- the serving plane's publication (``_serve_pub``, swapped at every
+  commit boundary and read by :mod:`delta_crdt_ex_tpu_torch.runtime.serve`
+  without the lock) and the cached front door (:meth:`Replica.frontdoor`);
+- the observability hooks (``obs=``): the flight recorder, the lag
+  tracer, the plane's varz/health sources (:meth:`Replica.obs_varz`,
+  :meth:`Replica.health`), the drain accounting, and the
+  ``crdt.flush`` / ``crdt.merge`` / ``crdt.merge_group`` profiler spans
+  (:mod:`delta_crdt_ex_tpu_torch.runtime.tracing`);
+
 - log-shipping catch-up (``log_shipping``, on by default as in the JAX
   package): per-peer applied watermarks learned from walk equality, a
   round opener's ``log_horizon`` deciding between the digest walk and a
@@ -51,9 +60,8 @@ carries, line for line the JAX replica's semantics:
   its hard cap); fleet envelopes
   (``FleetFrameMsg``) handed to a mailbox whole fan out here.
 
-Tree gossip, serving and the observability plane wait for later slices:
-their options raise ``NotImplementedError`` naming the slice
-(:data:`LATER_OPTIONS`). Sync slices always travel on the host plane
+Tree gossip waits for a later slice: its options raise
+``NotImplementedError`` naming the slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host plane
 (numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the wire
 stays the JAX package's and every one of them may coalesce.
 """
@@ -75,7 +83,8 @@ from delta_crdt_ex_tpu_torch.models.binned import pow2_tier, pow4_tier
 from delta_crdt_ex_tpu_torch.models.binned_map import BinnedAWLWWMap, CtxGapError
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
-from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
+from delta_crdt_ex_tpu_torch.runtime import metrics as metrics_mod
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, tracing, transition
 from delta_crdt_ex_tpu_torch.runtime.clock import Clock
 from delta_crdt_ex_tpu_torch.runtime.storage import (
     FileStorage,
@@ -133,8 +142,6 @@ LATER_OPTIONS = {
     "tree_seed": ("tree gossip", ...),
     "tree_degrade_ratio": ("tree gossip", ...),
     "tree_group": ("tree gossip", None),
-    "obs": ("serving and observability", None),
-    "flight_dump_path": ("serving and observability", None),
 }
 
 
@@ -314,6 +321,8 @@ class Replica:
         catchup_chunk_rows: int = 1024,
         catchup_suffix_ratio: float = 4.0,
         gc_interval_ops: int = 4096,
+        obs=None,
+        flight_dump_path: str | None = None,
         device="cuda",
         **later,
     ):
@@ -371,6 +380,22 @@ class Replica:
         self.sync_timeout = (
             sync_timeout if sync_timeout is not None else max(10 * sync_interval, 2.0)
         )
+        #: observability plane: ``obs=True`` resolves to the process-wide
+        #: plane, an :class:`~delta_crdt_ex_tpu_torch.runtime.metrics.
+        #: Observability` is used as-is, ``None``/``False`` disables it
+        #: (the ``has_handlers`` guards then keep disabled telemetry at a
+        #: lock check). The flight recorder is the per-replica black box
+        #: (a bounded ring dumped on :meth:`crash`, also to
+        #: ``flight_dump_path`` as JSON lines when set); the lag tracer
+        #: samples local commits so peers' watermark advances yield
+        #: per-peer convergence-lag histograms with zero wire changes.
+        #: Set before recovery: the WAL replay records a flight event
+        self._obs = metrics_mod.resolve_obs(obs)
+        self.flight = self._obs.recorder(self.name) if self._obs is not None else None
+        self.flight_dump_path = flight_dump_path
+        self._lag = self._obs.lag if self._obs is not None else None
+        #: the threaded loop's heartbeat (``health()``)
+        self._loop_ts = time.monotonic()
         self.eager_deltas = eager_deltas
         #: ingress coalescing: ``process_pending`` drains at most
         #: ``ingress_batch`` messages a batch and joins each run of
@@ -400,6 +425,19 @@ class Replica:
         self._state: Any = None
         self._fleet_src: "tuple | None" = None
         self._state_version = 0
+        #: serving-plane read publication: the ``(version, state,
+        #: fleet_src, payloads)`` tuple the front door's lock-free
+        #: snapshot reads pin, swapped in one attribute store by
+        #: ``_publish_serve`` at commit boundaries (where the device
+        #: state and the payload dict agree) and read WITHOUT the lock.
+        #: Two invariants keep a pinned tuple valid for ever: no op
+        #: writes into a tensor a published state holds (every op copies
+        #: then writes), and the published payload dict is append-only
+        #: for its generation (``gc`` replaces the dict, never prunes it)
+        self._serve_pub: "tuple | None" = None
+        #: the cached front door (``frontdoor()``), closed on stop/crash
+        #: so its admission worker never outlives the replica
+        self._frontdoor = None
         #: fleet participation (``stats()["fleet"]``): batched dispatches
         #: this replica rode, messages merged in them, solo fallbacks
         self._fleet_dispatches = 0
@@ -519,6 +557,10 @@ class Replica:
         if self._wal is not None:
             self._wal.bind(self.node_id)
         self.transport.register(self.name, self)
+        if self._obs is not None:
+            # last: the plane's scrape-time collector polls stats(), so
+            # every field it reads must exist already
+            self._obs.register_replica(self)
 
     def _init_fresh(self, node_id: int, capacity: int, replica_capacity: int) -> None:
         self.node_id = node_id
@@ -641,12 +683,18 @@ class Replica:
         replays a contiguous prefix)."""
         self._seq -= 1
         logger.debug("commit of seq %d aborted: %r", self._seq + 1, exc)
+        # the black box shows which commit died and why
+        self._flight("commit_abort", seq=self._seq, error=repr(exc))
 
     def _durable_batch(self, batch: list, ts) -> None:
         """Durability point for one local mutation batch — the single
         definition of the ``batch`` record schema (both flush paths)."""
         if not self._replaying:
             faultpoint("replica.commit.batch")
+        if self._lag is not None and not self._replaying:
+            # sample this local commit for replication-lag tracing
+            # (replay re-applies history, it commits nothing fresh)
+            self._lag.note_commit(self.addr, self._seq)
         self._durable(
             lambda: {
                 "kind": "batch",
@@ -692,6 +740,7 @@ class Replica:
             deleted, freed = 0, 0
             self._wal.rotate()  # still bound the active segment's size
         self._wal_unc = 0
+        self._flight("wal_compact", segments_deleted=deleted, bytes_reclaimed=freed, ack_floor=floor)
         if telemetry.has_handlers(telemetry.WAL_COMPACT):
             telemetry.execute(
                 telemetry.WAL_COMPACT,
@@ -741,6 +790,7 @@ class Replica:
         # clock continuity: replayed local stamps must not out-rank new
         # writes (the snapshot's last_ts was observed in _rehydrate)
         self.clock.observe(max_ts)
+        self._flight("wal_recover", records=applied, bytes=self._wal.recovered_bytes)
         if telemetry.has_handlers(telemetry.WAL_RECOVER):
             telemetry.execute(
                 telemetry.WAL_RECOVER,
@@ -766,12 +816,11 @@ class Replica:
             logger.warning(
                 "WAL replay: gapped entries record seq %s skipped", rec["seq"]
             )
-            self._gc_pressure += len(rec["payloads"])
             return
         self._note_state_changed(
             lambda ins=res.n_inserted, kill=res.n_killed: (ins, kill)
         )
-        self._gc_pressure += len(rec["payloads"]) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        self._gc_pressure += int(_TR_INGEST_COUNTS.get(res.n_killed))
         self._maybe_gc()
 
     def checkpoint(self) -> None:
@@ -938,7 +987,8 @@ class Replica:
         while self._pending:
             batch = self._pending[: self.MAX_BATCH]
             self._pending = self._pending[self.MAX_BATCH :]
-            self._flush_batch(batch)
+            with tracing.annotate("crdt.flush"):
+                self._flush_batch(batch)
 
     def _flush_batch(self, batch: list) -> None:
         n = len(batch)
@@ -1179,15 +1229,25 @@ class Replica:
                 self._state = self.model.grow_for_apply(st)
                 self._fleet_src = None
                 self._state_version += 1
+                # growth keeps the content but swaps the store: readers
+                # pin the live generation
+                self._publish_serve()
                 self._grown_telemetry(self._state)
 
     def _grown_telemetry(self, state) -> None:
+        self._flight("growth", capacity=int(state.capacity))
         if telemetry.has_handlers(telemetry.CAPACITY_GROWN):
             telemetry.execute(
                 telemetry.CAPACITY_GROWN,
                 {"capacity": state.capacity, "replica_capacity": state.replica_capacity},
                 {"name": self.name},
             )
+
+    def _flight(self, kind: str, **fields) -> None:
+        """Record one structured event in the flight recorder (a no-op
+        without an observability plane)."""
+        if self.flight is not None:
+            self.flight.record(kind, **fields)
 
     # ------------------------------------------------------------------
     # diffs, callback, telemetry (reference causal_crdt.ex:344-404)
@@ -1297,6 +1357,9 @@ class Replica:
         if not keep_read_cache:
             self._read_cache = None
             self._read_cache_kh = None
+        # commit boundary: every path reaching here registered its
+        # payloads first, so the serving plane's readers may pin it
+        self._publish_serve()
         if telemetry.has_handlers(telemetry.SYNC_DONE):
             name = self.name
 
@@ -1410,9 +1473,16 @@ class Replica:
         tail of :meth:`sync_to_all`, shared with the fleet's batched
         sync tick (whose ``send`` aggregates fleet frames). Caller holds
         the lock."""
+        opened = 0
         for n in list(self._monitors):
             if n != self.addr:
-                self._open_walk(n, send)
+                opened += bool(self._open_walk(n, send))
+        if opened:
+            self._flight("sync_open", peers=opened, seq=self._seq)
+            if self._lag is not None:
+                # the origin's propagation-round clock: one round per
+                # tick that opened walks
+                self._lag.note_round(self.addr)
 
     def _open_walk(self, n, send=None) -> bool:
         """Open one digest-walk round toward ``n`` (≤ 1 in flight); also
@@ -1548,7 +1618,7 @@ class Replica:
                 self._send_entries(to=msg.frm, buckets=msg.buckets, originator=msg.originator)
                 self._outstanding.pop(msg.frm, None)
             elif isinstance(msg, sync_proto.EntriesMsg):
-                self._handle_entries_inner(msg)
+                self._handle_entries(msg)
             elif isinstance(msg, sync_proto.AckMsg):
                 self._outstanding.pop(msg.clear_addr, None)
                 # trees were equal when the acked round's walk ran: the
@@ -1724,6 +1794,10 @@ class Replica:
             ),
         )
 
+    def _handle_entries(self, msg: sync_proto.EntriesMsg, log_noop: bool = True) -> "int | None":
+        with tracing.annotate("crdt.merge"):
+            return self._handle_entries_inner(msg, log_noop)
+
     def _handle_entries_inner(self, msg: sync_proto.EntriesMsg, log_noop: bool = True) -> "int | None":
         """Merge one entries slice; returns the entries it inserted or
         killed (None when it gapped and was answered with a repair
@@ -1741,7 +1815,7 @@ class Replica:
         want_diffs = self.on_diffs is not None
         keys_b = self._winner_records_rows(rows_np[rows_np >= 0]) if want_diffs else {}
         # payloads first: diff values for incoming winners must resolve
-        n_new = self._register_slice_payloads(msg.payloads)
+        self._register_slice_payloads(msg.payloads)
 
         try:
             self.state, res = self.model.merge_rows_into(
@@ -1751,6 +1825,7 @@ class Replica:
             # a delta-interval push is not contiguous with our context:
             # ask the sender for the full rows (the get_diff repair path)
             logger.debug("delta push from %r gapped; requesting full rows", msg.frm)
+            self._flight("gap_repair", peer=str(msg.frm), buckets=int(len(msg.buckets)))
             self.transport.send(
                 msg.frm,
                 sync_proto.GetDiffMsg(
@@ -1758,12 +1833,9 @@ class Replica:
                     buckets=np.asarray(msg.buckets),
                 ),
             )
-            self._gc_pressure += len(msg.payloads)
             return None
 
         if not log_noop and _same_state(before, self.state):
-            # only the dots it registered can be garbage
-            self._gc_pressure += n_new
             self._maybe_gc()
             return 0
         self._seq += 1
@@ -1805,7 +1877,7 @@ class Replica:
                 {"name": self.name, "plane": "host"},
             )
         n_ins, n_kill = _TR_INGEST_COUNTS.get((res.n_inserted, res.n_killed))
-        self._gc_pressure += len(msg.payloads) + int(n_kill)
+        self._gc_pressure += int(n_kill)
         self._maybe_gc()
         return int(n_ins) + int(n_kill)
 
@@ -1813,14 +1885,24 @@ class Replica:
         """Register a slice's payloads; returns how many dots were new.
         A dot held already has its payload and its key term (gc prunes
         both together), so only new dots are stored and hashed: a
-        full-row slice mostly re-ships entries the receiver holds."""
+        full-row slice mostly re-ships entries the receiver holds.
+
+        The new dots are the slice's whole share of gc pressure (the
+        merge paths add their kills): a re-shipped dot the replica holds
+        is no garbage. The JAX replica counts every shipped payload, so
+        a replica answering its peer's digest walks under a write load
+        re-merges full rows it holds and runs ``gc()`` over its whole
+        payload dict every few rounds, under its lock (``ROADMAP.md``
+        §3.8)."""
         pay, terms = self._payloads, self._key_terms
         n = len(pay)
         for dot, p in payloads.items():
             if dot not in pay:
                 pay[dot] = p
                 terms[key_hash64(p[0])] = p[0]
-        return len(pay) - n
+        n_new = len(pay) - n
+        self._gc_pressure += n_new
+        return n_new
 
     # ------------------------------------------------------------------
     # log-shipping catch-up (``replica.py:2792-3165``). The WAL range is
@@ -1844,6 +1926,10 @@ class Replica:
         d = self._applied_seq
         cur = d.pop(peer, 0)  # pop + reinsert: insertion order ≈ recency
         d[peer] = max(cur, int(seq))
+        if self._lag is not None and d[peer] > cur:
+            # the lag trace: every sampled commit of ``peer`` at or
+            # below the new watermark is visible here now
+            self._lag.note_visible(self.addr, peer, d[peer])
         while len(d) > self.MAX_PEER_WATERMARKS:
             d.pop(next(iter(d)))
         floor = self._catchup_walk_floor
@@ -1866,6 +1952,7 @@ class Replica:
         last = int(self._applied_seq.get(peer, 0))
         msg = sync_proto.GetLogMsg(frm=self.addr, to=peer, last_seq=last, applied_seq=last)
         if self.transport.send(peer, msg):
+            self._flight("catchup_request", peer=str(peer), last_seq=last)
             self._catchup[peer] = {
                 "t0": now,
                 "expiry": now + self.sync_timeout,
@@ -2053,7 +2140,7 @@ class Replica:
             # back to that peer in turn — the JAX replica logs it, so
             # two WAL replicas' streams echo each other (``ROADMAP.md``
             # §3.6)
-            self._handle_entries_inner(
+            self._handle_entries(
                 sync_proto.EntriesMsg(
                     originator=peer, frm=peer, to=self.addr,
                     buckets=np.asarray(s["buckets"], np.int64),
@@ -2109,6 +2196,9 @@ class Replica:
         elif current:
             dur = time.monotonic() - st["t0"]
             self._catchup_last_duration = dur
+            self._flight(
+                "catchup_done", peer=str(peer), chunks=st["chunks"] + 1, horizon_fallback=bool(st["horizon"])
+            )
             if telemetry.has_handlers(telemetry.CATCHUP_DONE):
                 telemetry.execute(
                     telemetry.CATCHUP_DONE,
@@ -2145,6 +2235,10 @@ class Replica:
             self._key_terms = {h: t for h, t in self._key_terms.items() if h in keep_keys}
             self._gc_pressure = 0
             self._gc_floor = len(self._payloads)
+            # republish with the pruned dict (same version, same state:
+            # every published winner is a live dot and survives the
+            # prune), so a pinned tuple stops holding the pre-gc dict
+            self._publish_serve()
 
     def _maybe_gc(self) -> None:
         if self._gc_pressure >= max(self.gc_interval_ops, self._gc_floor >> 1):
@@ -2165,6 +2259,8 @@ class Replica:
         ``EntriesMsg``s merges group by group (``_handle_batch``). The
         ``SYNC_DONE`` events of the whole drain read their counts with
         one transfer at its end and are emitted then, in order."""
+        obs = self._obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         n = 0
         with self._lock:
             top = self._telemetry_defer is None
@@ -2187,6 +2283,9 @@ class Replica:
                     fetched = _TR_DRAIN_ACCOUNTING.get([f() for f, _e in deferred])
                     for (_f, emit), data in zip(deferred, fetched):
                         emit(data)
+        if obs is not None and n:
+            # one registry update per drain pass, never per message
+            obs.record_drain(self.name, n, time.perf_counter() - t0)
         return n
 
     def _handle_batch(self, msgs: list) -> None:
@@ -2282,7 +2381,7 @@ class Replica:
         if len(msgs) == 1 or self.on_diffs is not None:
             for m in msgs:
                 self._count_dispatch(1, 1)
-                self._handle_entries_inner(m)
+                self._handle_entries(m)
             return
         self._flush()
         t0 = time.perf_counter()
@@ -2291,9 +2390,10 @@ class Replica:
         for m in msgs:
             self._register_slice_payloads(m.payloads)
         try:
-            self.state, res, offsets = self.model.merge_group_into(
-                self.state, [m.arrays for m in msgs], on_grow=self._grown_telemetry
-            )
+            with tracing.annotate("crdt.merge_group"):
+                self.state, res, offsets = self.model.merge_group_into(
+                    self.state, [m.arrays for m in msgs], on_grow=self._grown_telemetry
+                )
         except CtxGapError as err:
             gapped = err.gapped_members
             if partition and gapped and 0 < len(gapped) < len(msgs):
@@ -2301,15 +2401,17 @@ class Replica:
                 # a second gap there means the mask was wrong, so its
                 # retry falls back to per-slice handling
                 self._ingress_gap_partitions += 1
+                self._flight("gap_partition", depth=len(msgs), gapped=len(gapped))
                 self._handle_entries_group([m for i, m in enumerate(msgs) if i not in gapped], partition=False)
                 for i in sorted(gapped):
                     self._count_dispatch(1, 1)
-                    self._handle_entries_inner(msgs[i])
+                    self._handle_entries(msgs[i])
                 return
             self._ingress_gap_fallbacks += 1
+            self._flight("gap_fallback", depth=len(msgs))
             for m in msgs:
                 self._count_dispatch(1, 1)
-                self._handle_entries_inner(m)
+                self._handle_entries(m)
             return
         depth = len(msgs)
         self._count_dispatch(depth, depth)
@@ -2332,7 +2434,7 @@ class Replica:
                 },
                 {"name": self.name},
             )
-        self._gc_pressure += sum(len(m.payloads) for m in msgs) + int(_TR_INGEST_COUNTS.get(res.n_killed))
+        self._gc_pressure += int(_TR_INGEST_COUNTS.get(res.n_killed))
         self._maybe_gc()
 
     def _commit_entries_group(self, msgs: list, offsets, counts_fn, dt: float) -> None:
@@ -2362,6 +2464,9 @@ class Replica:
             except BaseException as e:
                 self._commit_abort(e)
                 raise
+        # commit boundary of the grouped paths (solo grouped and fleet
+        # batched): state stored, payloads registered
+        self._publish_serve()
         depth = len(msgs)
         if telemetry.has_handlers(telemetry.SYNC_DONE):
             name = self.name
@@ -2423,6 +2528,7 @@ class Replica:
         and repair, and singleton handling behave as without a fleet."""
         with self._lock:
             self._fleet_fallbacks += 1
+            self._flight("fleet_fallback", depth=len(msgs))
             self._handle_entries_group(msgs)
 
     def fleet_commit(self, msgs: list, offsets, stacked, lane: int, counts_fn, n_killed: int,
@@ -2452,9 +2558,78 @@ class Replica:
             self._fleet_dispatches += 1
             self._fleet_messages += len(msgs)
             self._commit_entries_group(msgs, offsets, counts_fn, dt)
-            self._gc_pressure += sum(len(m.payloads) for m in msgs) + n_killed
+            self._gc_pressure += n_killed
             self._maybe_gc()
             return committed_version
+
+    # ------------------------------------------------------------------
+    # serving plane (``replica.py:3555-3600``)
+
+    def _publish_serve(self) -> None:
+        """Publish the current commit for the serving plane's lock-free
+        snapshot readers (caller holds the lock, at a commit boundary:
+        every alive dot of the current state has its payload in
+        ``_payloads``). One tuple and one attribute store."""
+        self._serve_pub = (self._state_version, self._state, self._fleet_src, self._payloads)
+
+    def publish_read_snapshot(self) -> tuple:
+        """Publish the current state now and return the published tuple
+        (the front door's priming and stale-read refresh hook)."""
+        with self._lock:
+            self._publish_serve()
+            return self._serve_pub
+
+    def frontdoor(self, **opts):
+        """This replica's serving front door, created on first use and
+        cached: lock-free snapshot reads, coalesced write admission,
+        backpressure and shedding (:class:`~delta_crdt_ex_tpu_torch.
+        runtime.serve.Frontdoor`). Closed by :meth:`stop` and
+        :meth:`crash`; options are fixed at first creation."""
+        from delta_crdt_ex_tpu_torch.runtime.serve import Frontdoor
+
+        with self._lock:
+            if self._frontdoor is None:
+                self._frontdoor = Frontdoor(self, **opts)
+            elif opts:
+                raise ValueError(
+                    f"front door for {self.name!r} already exists; options "
+                    "are fixed at first creation"
+                )
+            return self._frontdoor
+
+    def _close_frontdoor(self) -> None:
+        """Detach and close the cached front door. The close joins the
+        admission worker, which may be waiting for this replica's lock,
+        so it runs outside the lock."""
+        with self._lock:
+            fd, self._frontdoor = self._frontdoor, None
+        if fd is not None:
+            fd.close()
+
+    # ------------------------------------------------------------------
+    # bench parity helpers (reference ``benchmark_helper.ex:2-14``:
+    # ``:hibernate`` compacts before timing, ``:ping`` round-trips the
+    # mailbox)
+
+    def hibernate(self) -> str:
+        """Quiesce before timing: flush, prune the host dicts, and wait
+        for the device."""
+        with self._lock:
+            self._flush()
+            self.gc()
+        # the device wait runs outside the lock: a whole in-flight merge
+        # pipeline must not hold concurrent mutators and readers
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return "ok"
+
+    def ping(self) -> str:
+        """Mailbox round trip: pending async mutations are applied
+        before the pong, as a GenServer ``:ping`` is served after every
+        queued cast."""
+        with self._lock:
+            self._flush()
+            return "ok"
 
     def stats(self) -> dict:
         """Observability snapshot. ``ingress`` shows the coalescing of
@@ -2532,6 +2707,38 @@ class Replica:
                 return 0
             return self._wal.size_bytes()
 
+    def obs_varz(self) -> dict:
+        """This replica's ``/varz`` stanza: the unchanged :meth:`stats`
+        dict under a typed envelope, plus the flight recorder's event
+        count with a plane attached."""
+        out = {"kind": "replica", "stats": self.stats()}
+        if self.flight is not None:
+            out["flight_events"] = self.flight.events_recorded()
+        return out
+
+    def health(self) -> dict:
+        """Liveness and readiness for ``/healthz``: the event loop is
+        responsive (a fresh heartbeat when threaded; a fleet's members
+        are covered by the fleet's tick check), the WAL directory is
+        writable, and every configured neighbour is monitored (an
+        unmonitorable neighbour is what the transport reported dead)."""
+        with self._lock:
+            loop_ok = True
+            if self._thread is not None:
+                loop_ok = self._thread.is_alive() and (
+                    time.monotonic() - self._loop_ts < max(5 * self.sync_interval, 2.0)
+                )
+            wal_ok = self._wal is None or os.access(self._wal.directory, os.W_OK)
+            neighbours = [n for n in self._neighbours if n != self.addr]
+            unreachable = [n for n in neighbours if n not in self._monitors]
+        return {
+            "ok": loop_ok and wal_ok and not unreachable,
+            "loop_responsive": loop_ok,
+            "wal_writable": wal_ok,
+            "neighbours": len(neighbours),
+            "neighbours_unreachable": [str(n) for n in unreachable],
+        }
+
     def start(self) -> "Replica":
         """Run the periodic anti-entropy loop in a background thread
         (first sync fires immediately)."""
@@ -2551,6 +2758,9 @@ class Replica:
                 faultpoint("replica.loop")
                 self.process_pending()
                 with self._lock:
+                    # health heartbeat: a wedged loop goes stale and
+                    # /healthz turns unready
+                    self._loop_ts = time.monotonic()
                     if self._pending:
                         self._flush()
                 now = time.monotonic()
@@ -2584,12 +2794,19 @@ class Replica:
         nothing is flushed or synced beyond what ``storage_mode`` and
         the WAL's fsync cadence already persisted, and deregistration
         fires ``Down`` at monitoring peers. A later ``start_link`` with
-        the same name and storage recovers with the node id kept."""
+        the same name and storage recovers with the node id kept. With a
+        plane attached the flight recorder is dumped through the logger
+        (and to ``flight_dump_path`` when set)."""
+        self._close_frontdoor()
         if self._thread is not None:
             self._stop.set()
             self._wake.set()
             self._thread.join(timeout=30)
             self._thread = None
+        if self.flight is not None:
+            self.flight.dump(path=self.flight_dump_path)
+        if self._obs is not None:
+            self._obs.unregister_replica(self)
         with self._lock:
             # under the lock: a concurrent mutate mid-append must not
             # race the close
@@ -2603,11 +2820,15 @@ class Replica:
         """Terminate: best-effort final sync, an interval-mode
         checkpoint, the WAL's final flush, then deregister (fires
         ``Down`` at monitoring peers)."""
+        self._close_frontdoor()
         if self._thread is not None:
             self._stop.set()
             self._wake.set()
             self._thread.join(timeout=30)
             self._thread = None
+        if self._obs is not None:
+            # a stopped replica must not scrape as a stale last value
+            self._obs.unregister_replica(self)
         try:
             self.sync_to_all()
         except Exception:  # best-effort, like the reference's terminate path

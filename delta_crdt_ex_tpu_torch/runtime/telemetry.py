@@ -4,9 +4,11 @@ The reference fires ``[:delta_crdt, :sync, :done]`` with
 ``%{keys_updated_count: n}`` and ``%{name: name}`` on **every** merge —
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
 contract here, plus the capacity-growth, sync-round, ingress-coalescing,
-WAL, log-shipping catch-up, fleet dispatch/egress and fault-trip
-events, under the same attach/execute API. The events of later slices (serving, …) come with
-them.
+WAL, log-shipping catch-up, fleet dispatch/egress, serving-plane,
+transfer-ledger and fault-trip events, under the same attach/execute
+API. The mesh and tree-gossip events come with their slices;
+``JIT_COMPILE`` has no counterpart (the port compiles nothing per
+shape).
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
 (the port imports nothing of the JAX package).
@@ -29,7 +31,26 @@ CATCHUP_CHUNK = ("delta_crdt", "catchup", "chunk")  # measurements: records, row
 CATCHUP_DONE = ("delta_crdt", "catchup", "done")  # measurements: chunks, duration_s, horizon_fallback; metadata: name, peer
 FLEET_DISPATCH = ("delta_crdt", "fleet", "dispatch")  # measurements: replicas, lanes, messages, rows, padded_rows, duration_s; metadata: fleet
 FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_batched, jobs_solo, dispatches, frames, frame_members, duration_s; metadata: fleet
+SERVE_ADMIT = ("delta_crdt", "serve", "admit")  # measurements: ops, duration_s; metadata: name
+SERVE_SHED = ("delta_crdt", "serve", "shed")  # measurements: ops; metadata: name, reason
+SERVE_READ = ("delta_crdt", "serve", "read")  # measurements: reads, retries, duration_s; metadata: name, mode ("keys"|"full"|"scan")
+TRANSFER = ("delta_crdt", "transfer", "crossing")  # measurements: crossings, bytes (absolute per-site ledger totals); metadata: site
 FAULT_TRIP = ("delta_crdt", "fault", "trip")  # measurements: trips (per trip); metadata: site
+
+
+def declared_events() -> tuple[tuple, ...]:
+    """Every event tuple this module declares: the metrics bridge keeps
+    one subscription row for each and warns at attach time about any
+    without one."""
+    return tuple(
+        v
+        for k, v in sorted(globals().items())
+        if k.isupper()
+        and isinstance(v, tuple)
+        and v
+        and all(isinstance(p, str) for p in v)
+    )
+
 
 _lock = threading.Lock()
 #: event -> handler tuple. Handler tables are REPLACED, never mutated
@@ -67,10 +88,16 @@ def execute(event: tuple, measurements: dict, metadata: dict) -> None:
 
 def execute_many(event: tuple, measurements_list: list, metadata: dict) -> None:
     """One event per element of ``measurements_list`` (shared
-    ``metadata``), in order, handler by handler: each handler sees the
-    stream ``execute`` in a loop would deliver."""
+    ``metadata``), in order, handler by handler: a plain handler sees the
+    stream ``execute`` in a loop would deliver; a handler carrying a
+    ``batch`` attribute (the metrics bridge: one registry-lock acquire
+    for the whole list) takes the list in one call."""
     with _lock:
         handlers = _handlers.get(event, ())
     for h in handlers:
-        for meas in measurements_list:
-            h(event, meas, metadata)
+        batch = getattr(h, "batch", None)
+        if batch is not None:
+            batch(event, measurements_list, metadata)
+        else:
+            for meas in measurements_list:
+                h(event, meas, metadata)

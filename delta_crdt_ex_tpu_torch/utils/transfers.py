@@ -5,8 +5,10 @@ Every crossing on the replica paths goes through an audited site
 (:func:`register` returns a :class:`TransferSite` whose :meth:`get`
 copies a tree of tensors to host numpy), and the ledger counts
 crossings and bytes per site label, so the port's crossings stay
-counted exactly where the JAX package counts them. Telemetry export
-and the ``/varz`` envelope wait for the observability slice.
+counted exactly where the JAX package counts them. :func:`audit`
+exports the absolute per-site totals as ``TRANSFER`` telemetry at
+scrape time (the metrics plane runs it as a collector), and
+:func:`varz` is the ledger's ``/varz`` envelope.
 """
 
 from __future__ import annotations
@@ -101,6 +103,34 @@ def snapshot() -> dict:
             label: {"count": s.count, "bytes": s.bytes}
             for label, s in sorted(_sites.items())
         }
+
+
+def audit() -> dict:
+    """Read every site's tally and emit ``TRANSFER`` telemetry carrying
+    the ABSOLUTE per-site totals (the metrics bridge sets its
+    ``crdt_transfers_total{site=...}`` and ``crdt_transfer_bytes_total``
+    gauges from them, so a plane attaching mid-process still exports
+    true totals). With no handler attached it is a snapshot read and
+    nothing more. Returns the snapshot."""
+    # deferred: runtime modules register their sites at import time, so
+    # a top-level runtime import here would cycle
+    from delta_crdt_ex_tpu_torch.runtime import telemetry
+
+    snap = snapshot()
+    if not telemetry.has_handlers(telemetry.TRANSFER):
+        return snap
+    for label, tally in snap.items():
+        telemetry.execute(
+            telemetry.TRANSFER,
+            {"crossings": tally["count"], "bytes": tally["bytes"]},
+            {"site": label},
+        )
+    return snap
+
+
+def varz() -> dict:
+    """``/varz`` source: the ledger's snapshot under its envelope."""
+    return {"kind": "transfers", "stats": snapshot()}
 
 
 def as_u64(a: np.ndarray) -> np.ndarray:

@@ -17,7 +17,9 @@ leg at 65536 keys and 4096 buckets, the count of buckets on the card)::
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_gc_suspects
 
-The tests hold the port to the JAX package's counts at a smaller size.
+The tests hold the port to the JAX package's counts at a smaller size,
+but for the ``gc()`` the JAX replica runs on payloads it holds already
+(``ROADMAP.md`` §3.8).
 """
 
 from __future__ import annotations
@@ -167,8 +169,16 @@ def _drive_stop_and_collect(pkg: str, kind: str) -> tuple[int, dict]:
 
 
 def test_first_propagation_gc_calls_match_jax():
+    """The same ``gc()`` calls in both packages, but one: while the pair
+    converges, replica 1 merges replica 2's full rows (the digest walk
+    ships them back) that it holds already. The JAX replica counts each
+    re-shipped payload as gc pressure and runs a ``gc()`` there; the
+    port counts only the dots a slice adds (``ROADMAP.md`` §3.8) and
+    runs none."""
     j = first_propagation("jax", 4096, 6)
     t = first_propagation("torch", 4096, 6)
+    assert j["converge"]["r1"] >= 1 and "r1" not in t["converge"]
+    j["converge"].pop("r1")
     assert t == j
     assert t["first"]["rounds"] >= 1
 

@@ -9,8 +9,10 @@ column must be bit-identical.
 Also: the port imports nothing of JAX or of the JAX package, its wire
 messages keep the JAX package's fields, CUDA is its default device,
 ``AWLWWMap`` with no ``store=`` is the binned store with ingress
-coalescing on, ``stats()`` works on both stores, and options of later
-slices raise instead of being ignored.
+coalescing on, ``stats()`` works on both stores, the options of the
+serving and observability slice (``obs=``, ``flight_dump_path=``, the
+fleet's front door and health) work, and options of later slices raise
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -151,6 +153,9 @@ def test_port_imports_no_jax():
         "from delta_crdt_ex_tpu_torch import AWSet, BinnedAWLWWMap, HashAWSet, HashAWLWWMap\n"
         "from delta_crdt_ex_tpu_torch import FileStorage, MemoryStorage, SimNetwork, WalLog, child_spec\n"
         "from delta_crdt_ex_tpu_torch import TcpTransport\n"
+        "import delta_crdt_ex_tpu_torch.runtime.serve, delta_crdt_ex_tpu_torch.runtime.metrics\n"
+        "import delta_crdt_ex_tpu_torch.runtime.obs_server, delta_crdt_ex_tpu_torch.runtime.tracing\n"
+        "from delta_crdt_ex_tpu_torch import Frontdoor, FleetFrontdoor, Observability, ObsServer, Overloaded, frontdoor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
     )
@@ -218,29 +223,79 @@ def test_stats_on_both_stores(store):
 @pytest.mark.parametrize(
     "opts, err",
     [
-        ({"obs": True}, NotImplementedError),
+        # the serving and observability slice's options now work (None:
+        # the call succeeds; the cases keep the ids they had while these
+        # options raised); the tree-gossip options still raise
+        pytest.param({"obs": True}, None, id="opts0-NotImplementedError"),
         ({"store": "hash", "tree_fanout": 2}, NotImplementedError),
-        ({"store": "hash", "flight_dump_path": "x"}, NotImplementedError),
+        pytest.param({"store": "hash", "flight_dump_path": "x"}, None, id="opts2-NotImplementedError"),
         ({"store": "hash", "tree_gossip": True}, NotImplementedError),
         ({"store": "hash", "no_such_option": 1}, TypeError),
     ],
 )
 def test_unported_options_raise(opts, err):
-    with pytest.raises(err):
-        tdc.start_link(tdc.AWLWWMap, threaded=False, transport=TTransport(), device="cpu", **opts)
+    from delta_crdt_ex_tpu_torch.runtime import metrics
+
+    start = lambda: tdc.start_link(tdc.AWLWWMap, threaded=False, transport=TTransport(), device="cpu", **opts)
+    if err is not None:
+        with pytest.raises(err):
+            start()
+        return
+    r = start()
+    try:
+        if opts.get("obs"):
+            assert r._obs is metrics.default_observability() and r.flight is not None
+        assert r.flight_dump_path == opts.get("flight_dump_path")
+        r.mutate("add", ["k", 1])
+        assert r.frontdoor().read_keys(["k"]) == {"k": 1}
+    finally:
+        r.stop()
+        if opts.get("obs"):
+            # the process default plane must not outlive this test
+            metrics.default_observability().close()
+            metrics._default_obs = None
+
+
+def _fleet_obs(t):
+    from delta_crdt_ex_tpu_torch.runtime import metrics
+
+    plane = metrics.Observability()
+    fleet = tdc.start_fleet(2, threaded=False, transport=t, device="cpu", obs=plane, capacity=64, tree_depth=4)
+    try:
+        assert all(r._obs is plane for r in fleet.replicas) and fleet._obs is plane
+        assert any(v["kind"] == "fleet" for v in plane.varz()["sources"].values())
+        return plane.health()[0]
+    finally:
+        fleet.stop()
+        plane.close()
+
+
+def _fleet_call(t, method):
+    fleet = tdc.start_fleet(2, threaded=False, transport=t, device="cpu", capacity=64, tree_depth=4)
+    try:
+        return getattr(fleet, method)()
+    finally:
+        fleet.stop()
 
 
 @pytest.mark.parametrize(
     "call, match",
     [
         (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu", mesh=True), "multi-device mesh"),
-        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu", obs=True), "serving and observability"),
-        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu").frontdoor(), "serving and observability"),
-        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu").health(), "serving and observability"),
+        # the serving and observability slice's fleet calls now succeed
+        # (match None: the call's result must be truthy; the cases keep
+        # the ids they had while these calls raised)
+        pytest.param(_fleet_obs, None, id="<lambda>-serving and observability0"),
+        pytest.param(lambda t: type(_fleet_call(t, "frontdoor")).__name__ == "FleetFrontdoor", None,
+                     id="<lambda>-serving and observability1"),
+        pytest.param(lambda t: _fleet_call(t, "health")["ok"], None, id="<lambda>-serving and observability2"),
         (lambda t: transition.fleet_hash_row_apply(None, None, None, None, None, None, None), "hash-store fleet mutation"),
         (lambda t: tdc.HashAWLWWMap.mesh_fleet_merge_rows(None, None, None), "multi-device mesh"),
     ],
 )
 def test_unported_fleet_options_raise(call, match):
+    if match is None:
+        assert call(TTransport())
+        return
     with pytest.raises(NotImplementedError, match=match):
         call(TTransport())
