@@ -2,12 +2,13 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-10
+    python3 chip_smoke.py                 # the full run: phases 1-11
     python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a, 9b, 10a and 10b at a cut key count
     python3 chip_smoke.py --only 7        # the build and phase 7 alone (no result lines)
     python3 chip_smoke.py --only 8        # the build and phase 8 alone (no result lines)
     python3 chip_smoke.py --only 9        # the build and phase 9 alone (no result lines)
     python3 chip_smoke.py --only 10       # the build, phases 3 and 3b (the pairs phase 10 serves from) and phase 10
+    python3 chip_smoke.py --only 11       # the build and phase 11 alone (no result lines)
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -99,7 +100,8 @@ Phases (each raises on failure; any failure exits nonzero):
 8. durability, each leg's WAL directories under ``build/wal/`` with
    the JAX package's WAL defaults (``fsync_mode="batch"``, 4 MiB
    segments): 8a two threaded default-store replicas with phase 3b's
-   geometry, 2^20 keys loaded into replica 1 (1024 ``batch`` records, a
+   geometry, 2^20 keys loaded into replica 1 (2^18 when the run would
+   otherwise pass ``RUN_GUARD_S``; the cut is logged) (1024 ``batch`` records, a
    compaction snapshot at the last), then 2^19 keys overwritten (512
    more records), replica 2 logging its merged slices as ``entries``
    records; both crash right after the overwrites (replica 2 still
@@ -190,6 +192,43 @@ Phases (each raises on failure; any failure exits nonzero):
    acknowledged write reads back from both replicas (every member in
    10c) and that the replicas converge to equal canonical bytes; 10a
    and 10c launch no kernel.
+11. tree gossip (``tree_gossip=True``), every replica on the card. 11a,
+   ``bench.py --tree``'s shape at full size: two universes of 256
+   unthreaded default-store replicas (``LogicalClock``, capacity 512,
+   ``replica_capacity`` 512, 64 buckets), each on a transport that costs
+   every delivered message at its pickled size; the tree universe with
+   fanout 8 and the full membership as neighbours (and a lag tracer at
+   ``sample_every=1``), the flat one with 64 neighbours a replica picked
+   by ``np.random.default_rng(7)``; 2 settle rounds, then 3 probes (one
+   fewer, down to 1, for each ``TREE_PROBE_S`` the run would otherwise
+   spend past ``RUN_GUARD_S``; the cut is logged) from a deepest-tier
+   writer, each at most 12 global rounds (every
+   replica's ``sync_to_all()``, then ``process_pending()`` until
+   quiescent). It holds the bench's gates in the run — median
+   propagation rounds at least 2x and bytes at least 1.5x better in the
+   tree, every tree/flat pair canonical-equal, the lag tracer's
+   ``crdt_propagation_rounds`` equal to the hand count — and prints
+   rounds, messages and bytes a probe, seconds a global round, the
+   relay's re-emits, folds and depth histogram and the tree's shape;
+   then a tier-1 relay crashes: its observers derive one epoch, the
+   membership update gives every survivor that epoch, one more probe
+   reaches every survivor, and they end canonical-equal. 11b, 16
+   threaded hash-store replicas in tree mode (fanout 4, depth 2) with
+   phase 3's configuration and a feed each: 2^14 keys (an eighth of
+   phase 3's, cut so that the run fits its time) into a tier-2 leaf until every
+   replica holds them, 10 single-op writes timed to their arrival at the
+   last replica, 1% removed, ``read_keys`` of 4096 keys on every
+   replica; equal canonical bytes, every acknowledged write read back
+   and every feed equal to the written map on all 16, one epoch with
+   roles root, relay and leaf and relay re-emits; the probe kernel's
+   launches by (H, W, Q) join the kernel line, and it is held bit-equal
+   to its plain version on a tier-1 relay's own table at every Q the
+   leg launched it at. 11c, phase 9c's two TCP endpoints with a
+   64-member fleet each, in tree mode with all 128 members as every
+   member's neighbours: one ``tree_group`` a fleet, exactly one member
+   of each (its captain) linked to the other endpoint, writes on both
+   fleets converged to equal canonical bytes on all 128; the wire from
+   endpoint A prints beside 9c's flat figures.
 
 Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
@@ -460,20 +499,28 @@ PATH_HITS = 0.75
 ROOTS_TIMED = [(64, 1 << 14), (8, 1 << 14), (4096, 1 << 14)]
 
 
-def kernel_us(fn, flush, name: str, reps: int = 10) -> float:
-    """Mean duration of the device kernels whose name holds ``name`` over
-    ``reps`` calls of ``fn()`` (``flush()`` between them), as
-    ``torch.profiler`` (CUPTI) records them: the kernel alone, without
-    the launch and event overhead that :func:`time_ms` includes."""
+#: profiling windows :func:`kernel_us` tries before it times by events
+PROFILE_WINDOWS = 6
+
+
+def kernel_us(fn, flush, name: str, reps: int = 10) -> tuple[float, str]:
+    """``(us, method)``: the mean duration of the device kernels whose
+    name holds ``name`` over ``reps`` calls of ``fn()`` (``flush()``
+    between them), as ``torch.profiler`` (CUPTI) records them: the
+    kernel alone, without the launch and event overhead that
+    :func:`time_ms` includes (method ``"profiler"``). When no window
+    records the kernel, the mean by CUDA events (method ``"events"``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a profiling window now and then comes back without the kernel's
-    # record (seen once at (2^22, 32, 8) on the H100 with torch 2.11);
-    # such a window is profiled again, at most twice more
-    for window in range(3):
+    # late in a run (after the replica paths) the first profiling window
+    # of a shape mostly comes back without the kernel's record, the
+    # second now and then, and once (H100, torch 2.11) the first three;
+    # such a window is profiled again, and if none records it the kernel
+    # is timed by events, which time_ms's spin keeps free of the enqueue
+    for window in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush()
@@ -482,9 +529,10 @@ def kernel_us(fn, flush, name: str, reps: int = 10) -> float:
         hits = [e for e in prof.key_averages() if name in e.key]
         count = sum(e.count for e in hits)
         if count:
-            return sum(e.device_time_total for e in hits) / count
+            return sum(e.device_time_total for e in hits) / count, "profiler"
         log(f"[kernel-time] profiling window {window + 1} recorded no {name} kernel")
-    raise AssertionError(f"the profiler recorded no {name} kernel in 3 windows")
+    log(f"[kernel-time] no profiling window of {PROFILE_WINDOWS} recorded a {name} kernel: timed by CUDA events")
+    return time_ms(fn, reps, flush)[0] * 1e3, "events"
 
 
 def kernel_timings(device_name: str, probe_shapes=PROBE_TIMED, roots_shapes=ROOTS_TIMED,
@@ -506,14 +554,15 @@ def kernel_timings(device_name: str, probe_shapes=PROBE_TIMED, roots_shapes=ROOT
     flush = lambda: scratch.random_(0, 255)
 
     def timed(fn, plain, name: str, head: bool, plain_reps: int) -> dict:
-        row = {"kernel_ms": kernel_us(fn, flush, name) / 1e3, "plain_ms": time_ms(plain, plain_reps, flush)[0]}
+        us, method = kernel_us(fn, flush, name)
+        row = {"kernel_ms": us / 1e3, "kernel_ms_by": method, "plain_ms": time_ms(plain, plain_reps, flush)[0]}
         if head:
             row["ms"], row["host_ms"] = time_ms(fn, 20, flush)
         return row
 
     def show(row: dict) -> str:
         ev = f" ({row['ms']:.6f} ms by events, host enqueue {row['host_ms']:.6f} ms)" if "ms" in row else ""
-        return (f"kernel {row['kernel_ms']:.6f} ms{ev}, plain {row['plain_ms']:.6f} ms, bound "
+        return (f"kernel {row['kernel_ms']:.6f} ms by {row['kernel_ms_by']}{ev}, plain {row['plain_ms']:.6f} ms, bound "
                 f"{row['bound_ms']:.6f} ms, kernel/bound {row['kernel_ms'] / row['bound_ms']:.3f} on {device_name}")
 
     rows: dict = {"probe": [], "roots": []}
@@ -2239,15 +2288,26 @@ DURABILITY_RESERVE_S = 300.0
 DURABILITY_KEYS = 1 << 20
 DURABILITY_HASH_KEYS = 1 << 17
 DURABILITY_FLEET_N = 256
+#: 8a's key count when the clock demands a cut (phases 9 and 11 keep
+#: their reserves): on an H100 at 700 W 8a took about 227 s of phase 8's
+#: 296.657 s at 2^20 keys in the first whole run with phase 11
+DURABILITY_CUT_KEYS = 1 << 18
 
 
 def phase_durability(device_name: str, keys: int = DURABILITY_KEYS, hash_keys: int = DURABILITY_HASH_KEYS,
-                     fleet_n: int = DURABILITY_FLEET_N, device: str = "cuda") -> dict:
+                     fleet_n: int = DURABILITY_FLEET_N, device: str = "cuda", t_start: "float | None" = None) -> dict:
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
 
     t0 = time.perf_counter()
-    out = {"8a": durability_leg("dura", None, keys, device_name, device)}
+    if t_start is not None and keys > DURABILITY_CUT_KEYS:
+        spent = t0 - t_start
+        rest = DURABILITY_RESERVE_S + TCP_RESERVE_S + TREE_RESERVE_S
+        if spent + rest > RUN_GUARD_S:
+            log(f"[cut] phase 8a keys {keys} -> {DURABILITY_CUT_KEYS}: {spent:.3f} s so far, about {rest:.0f} s "
+                f"to go with phase 8 at {keys} and phases 9 and 11 after it, past the {RUN_GUARD_S:.0f} s guard")
+            keys = DURABILITY_CUT_KEYS
+    out = {"8a": durability_leg("dura", None, keys, device_name, device, compact_every=max(1, keys // 1024))}
     for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
         ln = out["8a"][when]
         if ln[probe_lookup_kernel.name] or ln[batched_roots_kernel.name]:
@@ -2631,10 +2691,11 @@ def phase_tcp(device_name: str, t_start: float, keys: int = TCP_KEYS, hash_keys:
     t0 = time.perf_counter()
     note = ""
     spent = time.perf_counter() - t_start
-    if keys > TCP_CUT_KEYS and spent + TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S > RUN_GUARD_S:
+    if keys > TCP_CUT_KEYS and spent + TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S + TREE_RESERVE_S > RUN_GUARD_S:
         note = f", cut from {keys}: {spent:.3f} s spent when phase 9 began"
         log(f"[cut] phase 9a keys {keys} -> {TCP_CUT_KEYS}: {spent:.3f} s so far, about "
-            f"{TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S:.0f} s to go at {keys}, past the {RUN_GUARD_S:.0f} s guard")
+            f"{TCP_RESERVE_S + TCP_FULL_9A_EXTRA_S:.0f} s to go at {keys} and {TREE_RESERVE_S:.0f} s kept for "
+            f"phase 11, past the {RUN_GUARD_S:.0f} s guard")
         keys = TCP_CUT_KEYS
     out = {"9a": tcp_leg("tcpb", None, keys, device_name, device, cut_note=note)}
     out["9a"]["leg_s"] = time.perf_counter() - t0
@@ -3264,6 +3325,533 @@ def serve_fleet(device_name: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: tree gossip
+
+#: 11a's shape, ``bench.py --tree``'s (``bench.py:1154-1410``): peers a
+#: universe, the flat baseline's neighbours, the tree's fanout, probes,
+#: the rounds a probe may take, the digest-tree depth
+TREE_PEERS = 256
+TREE_FLAT_NEIGHBOURS = 64
+TREE_FANOUT = 8
+TREE_PROBES = 3
+#: seconds one probe adds to 11a, nearly all of them the flat universe's
+#: two global rounds (11a took 304.974 s with 3 probes and 216.023 s
+#: with 2 in two whole runs on an H100 at 700 W)
+TREE_PROBE_S = 90.0
+TREE_MAX_ROUNDS = 12
+TREE_DEPTH = 6
+#: 11b: hash-store replicas, their fanout, the keys loaded: an eighth
+#: of phase 3's 2^17, cut so that the phase fits the run's time (at 2^16
+#: keys 11b took 145.240 s on an H100 at 700 W, at 2^14 101.800 s:
+#: sixteen replica threads share one interpreter, and a single-op write
+#: takes about 3 s to reach the last replica at either size)
+TREE_HASH_N = 16
+TREE_HASH_FANOUT = 4
+TREE_HASH_KEYS = 1 << 14
+#: 11c: members of each TCP fleet (phase 9c's)
+TREE_TCP_FLEET_N = 64
+#: seconds phase 11 needs after phase 9 with 3 probes (what the guards
+#: of phases 7, 8 and 9 keep free for it, and 11a's own probe cut reads):
+#: on an H100 at 700 W it took 404.777 s in a whole run (11a 304.974 s,
+#: 11b 91.898 s at 2^14 keys, 11c 7.075 s)
+TREE_RESERVE_S = 410.0
+
+
+def counting_transport():
+    """A port ``LocalTransport`` that costs every delivered message at
+    its pickled size, what a socket transport would ship (``bench.py
+    --tree``'s ``CountingTransport``)."""
+    import pickle
+
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    class CountingTransport(LocalTransport):
+        def __init__(self) -> None:
+            super().__init__()
+            self.bytes = 0
+            self.msgs = 0
+
+        def send(self, addr, msg):
+            ok = super().send(addr, msg)
+            if ok:
+                self.bytes += len(pickle.dumps(msg, protocol=4))
+                self.msgs += 1
+            return ok
+
+    return CountingTransport()
+
+
+def tree_universe(tag: str, tree: bool, peers: int, flat_neighbours: int, fanout: int, device: str, obs=None):
+    """One universe of ``bench.py --tree``: ``peers`` unthreaded replicas
+    on a counting transport under a ``LogicalClock``; tree mode with the
+    full membership as neighbours, or the flat baseline's neighbours
+    picked with ``np.random.default_rng(7)`` as the bench picks them."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+
+    transport, clock = counting_transport(), LogicalClock()
+    reps = [
+        dc.start_link(dc.AWLWWMap, threaded=False, transport=transport, clock=clock, name=f"{tag}{i}",
+                      node_id=i + 1, capacity=512, obs=obs, replica_capacity=2 * peers, tree_depth=TREE_DEPTH,
+                      sync_timeout=600.0, tree_gossip=tree, tree_fanout=fanout, device=device)
+        for i in range(peers)
+    ]
+    addrs = [r.addr for r in reps]
+    if tree:
+        for r in reps:
+            r.set_neighbours(addrs)
+    else:
+        rng = np.random.default_rng(7)
+        for i, r in enumerate(reps):
+            others = [a for j, a in enumerate(addrs) if j != i]
+            picks = rng.choice(len(others), flat_neighbours, replace=False)
+            r.set_neighbours([others[j] for j in sorted(picks)])
+    return transport, reps
+
+
+def global_round(reps) -> None:
+    """Every replica's ``sync_to_all()``, then ``process_pending()``
+    until quiescent."""
+    for r in reps:
+        r.sync_to_all()
+    for _ in range(2000):
+        if not sum(r.process_pending() for r in reps):
+            return
+    raise AssertionError("universe did not quiesce")
+
+
+def run_tree_probes(tag: str, transport, reps, writer_idx: int, probes: int, sync) -> dict:
+    """``bench.py``'s probes: 2 settle rounds, then ``probes`` fresh keys
+    from the writer, global rounds until every replica reads the key (at
+    most ``TREE_MAX_ROUNDS``); rounds, messages and bytes a probe, and
+    the wall seconds of every global round."""
+    import statistics
+
+    peers = len(reps)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        global_round(reps)
+    sync()
+    settle_s = time.perf_counter() - t0
+    cover_rounds: list = []
+    per_peer: dict = {}
+    full_rounds, probe_bytes, probe_msgs, round_s = [], [], [], []
+    for p in range(probes):
+        key = f"probe-{p}"
+        reps[writer_idx].mutate("add", [key, p])
+        covered = {writer_idx}
+        b0, m0 = transport.bytes, transport.msgs
+        rnd = 0
+        while len(covered) < peers and rnd < TREE_MAX_ROUNDS:
+            rnd += 1
+            t1 = time.perf_counter()
+            global_round(reps)
+            sync()
+            round_s.append(time.perf_counter() - t1)
+            for i, r in enumerate(reps):
+                if i not in covered and r.read_keys([key]):
+                    covered.add(i)
+                    cover_rounds.append(rnd)
+                    per_peer.setdefault(str(r.addr), []).append(rnd)
+        if len(covered) != peers:
+            raise AssertionError(f"11a {tag}: probe {p} reached {len(covered)}/{peers} after {TREE_MAX_ROUNDS} rounds")
+        full_rounds.append(rnd)
+        probe_bytes.append(transport.bytes - b0)
+        probe_msgs.append(transport.msgs - m0)
+    return {
+        "median_propagation_rounds": statistics.median(cover_rounds),
+        "full_coverage_rounds": full_rounds,
+        "bytes_per_probe": probe_bytes,
+        "msgs_per_probe": probe_msgs,
+        "bytes_total": sum(probe_bytes),
+        "msgs_total": sum(probe_msgs),
+        "round_s": round_s,
+        "settle_s": settle_s,
+        "cover_rounds_by_peer": per_peer,
+    }
+
+
+def tree_vs_flat(device_name: str, device: str = "cuda", peers: int = TREE_PEERS,
+                 flat_neighbours: int = TREE_FLAT_NEIGHBOURS, fanout: int = TREE_FANOUT,
+                 probes: int = TREE_PROBES) -> dict:
+    """Phase 11a: ``bench.py --tree`` at full size on ``device``, its
+    in-run gates, then a tier-1 relay crashed: every survivor derives one
+    shared epoch, one more probe reaches every survivor, and the
+    survivors end with equal canonical bytes."""
+    import gc
+
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.runtime import treesync
+    from delta_crdt_ex_tpu_torch.runtime.metrics import Observability
+
+    gc.collect()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_leg = time.perf_counter()
+    probe_lookup_kernel.reset()  # 11a's run starts here: the binned store launches neither kernel
+    batched_roots_kernel.reset()
+    plane = Observability(lag_sample_every=1)
+    out: dict = {"peers": peers, "flat_neighbours": flat_neighbours, "fanout": fanout, "probes": probes}
+    flat_reps, tree_reps = [], []
+    try:
+        t0 = time.perf_counter()
+        flat_t, flat_reps = tree_universe("f", False, peers, flat_neighbours, fanout, device)
+        tree_t, tree_reps = tree_universe("t", True, peers, flat_neighbours, fanout, device, obs=plane)
+        out["build_s"] = time.perf_counter() - t0
+        topo = tree_reps[0]._tree_refresh()
+        writer_idx = max(range(peers), key=lambda i: topo.tier.get(tree_reps[i].addr, 0))
+        tiers: dict = {}
+        for a in topo.members:
+            tiers[topo.tier[a]] = tiers.get(topo.tier[a], 0) + 1
+        out["tree"] = {"depth": topo.depth, "root": str(topo.root), "tiers": dict(sorted(tiers.items())),
+                       "writer": str(tree_reps[writer_idx].addr), "writer_tier": topo.tier[tree_reps[writer_idx].addr],
+                       "epochs": len({r._tree_refresh().epoch for r in tree_reps})}
+        if out["tree"]["epochs"] != 1:
+            raise AssertionError(f"11a: the tree universe derived {out['tree']['epochs']} epochs")
+        flat = run_tree_probes("flat", flat_t, flat_reps, writer_idx, probes, sync)
+        tree = run_tree_probes("tree", tree_t, tree_reps, writer_idx, probes, sync)
+        # the lag tracer at sample_every=1 must reproduce the hand count
+        # for every (writer, peer) pair it observed (bench.py:1309-1360)
+        rounds_hist = plane.lag.rounds
+        writer_addr = str(tree_reps[writer_idx].addr)
+        pairs = [lb for lb in rounds_hist.label_sets() if lb[0] == writer_addr]
+        if not pairs:
+            raise AssertionError("11a: the lag tracer recorded no writer-origin coverage")
+        tracer_n, tracer_sum = 0, 0.0
+        for lb in pairs:
+            hand = tree["cover_rounds_by_peer"].get(lb[1])
+            n, s = rounds_hist.count(lb), rounds_hist.sum(lb)
+            if hand is None or n != len(hand) or s != float(sum(hand)):
+                raise AssertionError(f"11a: lag tracer for peer {lb[1]}: {n} observations summing {s}, "
+                                     f"hand count {hand}")
+            tracer_n += n
+            tracer_sum += s
+        out["lag_tracer"] = {"pairs": len(pairs), "observations": tracer_n, "rounds_sum": tracer_sum}
+        for _ in range(3):
+            global_round(flat_reps)
+            global_round(tree_reps)
+        want = tree_reps[0].canonical_state_bytes()
+        for i in range(peers):
+            ct, cf = tree_reps[i].canonical_state_bytes(), flat_reps[i].canonical_state_bytes()
+            if ct != cf or ct != want:
+                raise AssertionError(f"11a: tree/flat canonical bytes differ at peer {i}")
+        check_on_card(tree_reps + flat_reps, device)
+        rounds_ratio = flat["median_propagation_rounds"] / tree["median_propagation_rounds"]
+        bytes_ratio = flat["bytes_total"] / tree["bytes_total"]
+        if rounds_ratio < 2.0 or bytes_ratio < 1.5:
+            raise AssertionError(f"11a: rounds ratio {rounds_ratio:.3f} (want >= 2), bytes ratio "
+                                 f"{bytes_ratio:.3f} (want >= 1.5)")
+        relay = {"reemits": 0, "msgs_folded": 0, "rows_reemitted": 0, "tx_bytes": 0, "depth_hist": {}}
+        for r in tree_reps:
+            st = r.stats()["tree"]
+            for k in ("reemits", "msgs_folded", "rows_reemitted", "tx_bytes"):
+                relay[k] += st[k]
+            for d, c in st["depth_hist"].items():
+                relay["depth_hist"][d] = relay["depth_hist"].get(d, 0) + c
+        relay["depth_hist"] = dict(sorted(relay["depth_hist"].items()))
+        for tag, m in (("flat", flat), ("tree", tree)):
+            m.pop("cover_rounds_by_peer")
+            m["s_per_round_median"] = float(np.median(m["round_s"]))
+        out.update({"flat": flat, "tree_probes": tree, "rounds_ratio": rounds_ratio, "bytes_ratio": bytes_ratio,
+                    "msgs_ratio": flat["msgs_total"] / tree["msgs_total"], "relay": relay,
+                    "canonical_bytes": len(want)})
+        log(f"[tree] 11a: {peers} peers, tree fanout {fanout} (depth {topo.depth}, root {topo.root}, tiers "
+            f"{out['tree']['tiers']}, writer {writer_addr} at tier {out['tree']['writer_tier']}) vs flat "
+            f"{flat_neighbours} neighbours: median propagation rounds tree {tree['median_propagation_rounds']} flat "
+            f"{flat['median_propagation_rounds']} ({rounds_ratio:.3f}x); messages a probe tree "
+            f"{tree['msgs_per_probe']} flat {flat['msgs_per_probe']}; bytes a probe tree {tree['bytes_per_probe']} "
+            f"flat {flat['bytes_per_probe']} ({bytes_ratio:.6f}x); s a global round (median) tree "
+            f"{tree['s_per_round_median']:.6f} flat {flat['s_per_round_median']:.6f}; relay {json.dumps(relay)}; "
+            f"lag tracer {out['lag_tracer']} = the hand count; every tree/flat pair canonical-equal on {device_name}")
+
+        # a tier-1 relay crashes: its links observe the Down and derive
+        # the tree over the survivors; the membership update then gives
+        # every survivor that same epoch
+        for r in flat_reps:
+            r.crash()
+        flat_reps = []
+        relay_addr = next(a for a in topo.children.get(topo.root, ()) if topo.children.get(a))
+        victim = next(r for r in tree_reps if r.addr == relay_addr)
+        survivors = [r for r in tree_reps if r is not victim]
+        victim.crash()
+        tree_reps = survivors
+        global_round(survivors)
+        observers = [r for r in survivors if r._tree_down]
+        obs_epochs = {r._tree_refresh().epoch for r in observers}
+        alive = [r.addr for r in survivors]
+        for r in survivors:
+            r.set_neighbours(alive)
+        epochs = {r._tree_refresh().epoch for r in survivors}
+        want_epoch = treesync.derive_tree(alive, fanout=fanout, seed=0).epoch
+        if len(obs_epochs) != 1 or epochs != obs_epochs or epochs != {want_epoch}:
+            raise AssertionError(f"11a: after the relay crash observers derived {len(obs_epochs)} epochs, "
+                                 f"survivors {len(epochs)}")
+        writer = survivors[min(writer_idx, len(survivors) - 1)]
+        writer.mutate("add", ["after-crash", 1])
+        rounds = 0
+        while rounds < TREE_MAX_ROUNDS and not all(r.read_keys(["after-crash"]) for r in survivors):
+            rounds += 1
+            global_round(survivors)
+        if not all(r.read_keys(["after-crash"]) for r in survivors):
+            raise AssertionError("11a: the probe after the relay crash did not reach every survivor")
+        global_round(survivors)
+        if len({r.canonical_state_bytes() for r in survivors}) != 1:
+            raise AssertionError("11a: the survivors' canonical bytes differ after the relay crash")
+        out["relay_crash"] = {"relay": str(relay_addr), "observers": len(observers), "survivors": len(survivors),
+                              "rounds": rounds, "epoch": next(iter(epochs))}
+        out["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches,
+                           batched_roots_kernel.name: batched_roots_kernel.launches}
+        if any(out["launches"].values()):
+            raise AssertionError(f"11a: a kernel was launched on the binned tree path: {out['launches']}")
+        out["leg_s"] = time.perf_counter() - t_leg
+        log(f"[tree] 11a relay crash: {relay_addr} (tier 1) crashed; {len(observers)} observers derived one epoch, "
+            f"and after the membership update all {len(survivors)} survivors share it; the next probe reached every "
+            f"survivor in {rounds} rounds; survivors canonical-equal; leg {out['leg_s']:.3f} s on {device_name}")
+        return out
+    finally:
+        for r in flat_reps:
+            r.crash()
+        for r in tree_reps:
+            r.stop()  # a crash would dump every flight ring through the logger
+        plane.close()
+
+
+def tree_hash(n: int, n_keys: int, device_name: str, device: str = "cuda", fanout: int = TREE_HASH_FANOUT) -> dict:
+    """Phase 11b: ``n`` threaded hash-store replicas in tree mode with
+    phase 3's configuration (sync interval 20 ms, ``max_sync_size`` 500,
+    an ``on_diffs`` feed each); a tier-2 leaf takes ``n_keys`` keys by
+    ``mutate_batch``, then 10 single-op writes are timed to their arrival
+    at the last replica, 1% of the keys are removed, and every replica
+    reads 4096 keys. The probe kernel runs the feeds' winner passes and
+    the reads; it is held bit-equal on a tier-1 relay's own table."""
+    import gc
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    gc.collect()
+    t_leg = time.perf_counter()
+    t = LocalTransport()
+    logs = [DiffLog() for _ in range(n)]
+    reps = [dc.start_link(dc.AWLWWMap, store="hash", name=f"treeh{i}", node_id=30_000 + i, transport=t,
+                          sync_interval=0.02, max_sync_size=500, on_diffs=logs[i], capacity=2 * n_keys,
+                          tree_gossip=True, tree_fanout=fanout, device=device)
+            for i in range(n)]
+    deadline = time.perf_counter() + SLICE_BUDGET_S
+    out: dict = {"replicas": n, "keys": n_keys, "fanout": fanout}
+    try:
+        for r in reps:
+            r.set_neighbours([x.addr for x in reps])
+        with reps[0]._lock:
+            topo = reps[0]._tree_refresh()
+        by_addr = {r.addr: r for r in reps}
+        writer = by_addr[max(topo.members, key=lambda a: (topo.tier[a], str(a)))]
+        relay = by_addr[topo.parent[writer.addr]]
+        out["tree"] = {"depth": topo.depth, "root": str(topo.root), "writer": writer.name,
+                       "writer_tier": topo.tier[writer.addr], "relay": relay.name}
+        if topo.tier[writer.addr] != 2:
+            raise AssertionError(f"11b: the writer sits at tier {topo.tier[writer.addr]}, not 2")
+        probe_lookup_kernel.reset()  # 11b's run starts here
+
+        t0 = time.perf_counter()
+        dc.mutate_batch(writer, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=SLICE_BUDGET_S)
+        out["load_s"] = time.perf_counter() - t0
+        for i, lg in enumerate(logs):
+            lg.wait(lambda d: len(d.view) >= n_keys, deadline, f"11b: {n_keys} keys on {reps[i].name}")
+        out["converge_s"] = time.perf_counter() - t0
+        log(f"[tree] 11b: {n_keys} keys into tier-2 leaf {writer.name}: mutate_batch {out['load_s']:.3f} s, on all "
+            f"{n} replicas after {out['converge_s']:.3f} s")
+
+        lat = []
+        for k in range(10):
+            t1 = time.perf_counter()
+            dc.mutate(writer, "add", [f"prop{k}", k])
+            for i, lg in enumerate(logs):
+                lg.wait(lambda d: d.view.get(f"prop{k}") == k, deadline, f"11b: prop{k} on {reps[i].name}")
+            lat.append(max(lg.seen_at[f"prop{k}"] for lg in logs) - t1)
+        out["propagation_ms"] = [x * 1e3 for x in lat]
+        log(f"[tree] 11b: 10 single-op writes to their arrival at the last replica (ms): "
+            f"{[round(x * 1e3, 3) for x in lat]} median {float(np.median(lat)) * 1e3:.3f}")
+
+        removed = [f"key{i}" for i in range(0, n_keys, 100)]
+        t1 = time.perf_counter()
+        dc.mutate_batch(writer, "remove", [[k] for k in removed], timeout=SLICE_BUDGET_S)
+        left = n_keys + 10 - len(removed)
+        for i, lg in enumerate(logs):
+            lg.wait(lambda d: len(d.view) == left and all(k not in d.view for k in removed[-8:]), deadline,
+                    f"11b: removes on {reps[i].name}")
+        out["remove_converge_s"] = time.perf_counter() - t1
+
+        probe = [f"key{i}" for i in range(0, n_keys, max(1, n_keys // 4096))][:4096]
+        want = {k: int(k[3:]) for k in probe if int(k[3:]) % 100 != 0}
+        t1 = time.perf_counter()
+        for r in reps:
+            if dc.read_keys(r, probe) != want:
+                raise AssertionError(f"11b: {r.name}'s read_keys disagrees with the written map")
+        out["read_keys_ms_all"] = (time.perf_counter() - t1) * 1e3
+        while True:
+            canon = {r.canonical_state_bytes() for r in reps}
+            if len(canon) == 1:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError("11b: the replicas did not converge to equal canonical bytes")
+            time.sleep(0.1)
+        written = {f"key{i}": i for i in range(n_keys) if i % 100 != 0} | {f"prop{k}": k for k in range(10)}
+        for r, lg in zip(reps, logs):
+            if lg.view != written:
+                raise AssertionError(f"11b: {r.name}'s diff feed differs from the written map")
+            if r.read_keys(list(written)) != written:
+                raise AssertionError(f"11b: {r.name} does not read back every acknowledged write")
+        check_on_card(reps, device)
+        stats = [r.stats()["tree"] for r in reps]
+        roles = {st["role"] for st in stats}
+        if len({st["epoch"] for st in stats}) != 1 or roles != {"root", "relay", "leaf"} \
+                or sum(st["reemits"] for st in stats) <= 0:
+            raise AssertionError(f"11b: tree stats: epochs {len({st['epoch'] for st in stats})}, roles {roles}, "
+                                 f"reemits {sum(st['reemits'] for st in stats)}")
+        out["launches"] = probe_lookup_kernel.launches
+        out["probe_by_shape"] = probe_shape_launches()
+        if device == "cuda" and out["launches"] <= 0:
+            raise AssertionError("11b: the probe kernel was not launched on the hash-store tree path")
+        out["relay"] = {"reemits": sum(st["reemits"] for st in stats),
+                        "msgs_folded": sum(st["msgs_folded"] for st in stats),
+                        "rows_reemitted": sum(st["rows_reemitted"] for st in stats),
+                        "by_role": {st["role"]: 0 for st in stats}}
+        for st in stats:
+            out["relay"]["by_role"][st["role"]] += st["reemits"]
+        out["canonical_bytes"] = len(next(iter(canon)))
+        out["table_size"] = relay.state.table_size
+        log(f"[tree] 11b: removed {len(removed)} keys (on all after {out['remove_converge_s']:.3f} s); read_keys of "
+            f"{len(probe)} keys on all {n} replicas {out['read_keys_ms_all']:.3f} ms; canonical bytes equal; one epoch, "
+            f"roles {sorted(roles)}; relay {json.dumps(out['relay'])}; probe kernel launches on this path "
+            f"{out['launches']} by HxWxQ {out['probe_by_shape']} on {device_name}")
+        # launches below compare the kernel with its plain version on a
+        # tier-1 relay's own table and are not the path's
+        qs = sorted({int(k.split("x")[2]) for k in out["probe_by_shape"]})
+        out["table_max_abs_err"] = check_main_tables([relay], n_keys, removed, [f"prop{k}" for k in range(10)],
+                                                     q_sizes=qs)
+        out["leg_s"] = time.perf_counter() - t_leg
+        return out
+    finally:
+        for r in reps:
+            r.stop()
+
+
+def tree_tcp_fleets(n: int, device_name: str, device: str = "cuda", flat_wire: "dict | None" = None) -> dict:
+    """Phase 11c: phase 9c's two TCP endpoints, each with an ``n``-member
+    fleet, now in tree mode with every member's neighbours all ``2n``
+    members: each fleet is one tier-0 group whose captain alone links to
+    the other endpoint; writes on members of both fleets converge to
+    equal canonical bytes on all ``2n``. The wire from endpoint A prints
+    beside 9c's flat figures."""
+    import gc
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+
+    gc.collect()
+    t_leg = time.perf_counter()
+    ts = [dc.TcpTransport("127.0.0.1") for _ in range(2)]
+    clock = LogicalClock()
+    fleets = [dc.Fleet([dc.start_link(dc.AWLWWMap, threaded=False, transport=ts[g], clock=clock,
+                                      capacity=(1 << FLEET_DEPTH) * 16, tree_depth=FLEET_DEPTH, sync_timeout=0.2,
+                                      device=device, name=f"ttf{'ab'[g]}{i}", node_id=40_000 + 1000 * g + i,
+                                      tree_gossip=True, tree_fanout=TREE_FANOUT)
+                        for i in range(n)]) for g in range(2)]
+    out: dict = {"members": 2 * n}
+    try:
+        addrs = [ts[g].remote_addr(r.name) for g in range(2) for r in fleets[g].replicas]
+        for f in fleets:
+            for r in f.replicas:
+                r.set_neighbours(addrs)
+        t_end = time.perf_counter() + 10
+        while not all(ts[i].fleet_sink(("x", ts[1 - i].endpoint)) for i in (0, 1)):
+            if time.perf_counter() > t_end:
+                raise AssertionError("11c: fleet frames were never negotiated")
+            time.sleep(0.01)
+        captains = []
+        for g, f in enumerate(fleets):
+            if len({r.tree_group for r in f.replicas}) != 1:
+                raise AssertionError(f"11c: fleet {'ab'[g]}'s members carry more than one tree_group")
+            other = ts[1 - g].endpoint
+            outward = []
+            for r in f.replicas:
+                with r._lock:
+                    links = r._tree_refresh().links(r.addr)
+                if any(isinstance(a, tuple) and tuple(a[1]) == tuple(other) for a in links):
+                    outward.append(r.name)
+            if len(outward) != 1:
+                raise AssertionError(f"11c: fleet {'ab'[g]} has {len(outward)} members linked to the other endpoint")
+            captains.append(outward[0])
+        epochs = [len({r._tree_refresh().epoch for r in f.replicas}) for f in fleets]
+        if epochs != [1, 1]:
+            raise AssertionError(f"11c: epochs within each endpoint {epochs}")
+        wire0 = ts[0].transport_stats()
+        for g, f in enumerate(fleets):
+            for i in (0, n // 2, n - 1):
+                f.replicas[i].mutate_batch("add", [[f"tcp{g}_{i}_{j}", j] for j in range(FLEET_KEYS_PER_ROUND)])
+        rounds = 0
+        t0 = time.perf_counter()
+        members = fleets[0].replicas + fleets[1].replicas
+        while True:
+            rounds += 1
+            for f in fleets:
+                f.sync_tick()
+            time.sleep(0.05)
+            for f in fleets:
+                f.drain()
+            if len({r.canonical_state_bytes() for r in members}) == 1:
+                break
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("11c: the two fleets did not converge to equal canonical bytes")
+        out["converge_s"] = time.perf_counter() - t0
+        want = {f"tcp{g}_{i}_{j}": j for g in range(2) for i in (0, n // 2, n - 1) for j in range(FLEET_KEYS_PER_ROUND)}
+        if any(r.read() != want for r in members):
+            raise AssertionError("11c: a member's read differs from the written map")
+        check_on_card(members, device)
+        wire1 = ts[0].transport_stats()
+        out.update({"captains": captains, "rounds": rounds, "wire_a_setup": wire0, "wire_a": wire1,
+                    "egress_a": fleets[0].stats()["egress"],
+                    "relay_a": sum(r.stats()["tree"]["reemits"] for r in fleets[0].replicas)})
+        out["leg_s"] = time.perf_counter() - t_leg
+        log(f"[tree] 11c: two {n}-member tree fleets over TCP: one tree_group a fleet, captains {captains} (the only "
+            f"members linked to the other endpoint); writes on both converged on all {2 * n} in {rounds} ticks "
+            f"({out['converge_s']:.3f} s); relay re-emits on A {out['relay_a']}; wire from A "
+            f"{json.dumps(wire1)}; 9c's flat wire from A in this run {json.dumps(flat_wire)} on {device_name}")
+        return out
+    finally:
+        for f in fleets:
+            for r in f.replicas:
+                r.crash()
+        for t in ts:
+            t.close()
+
+
+def phase_tree(device_name: str, device: str = "cuda", flat_wire: "dict | None" = None,
+               t_start: "float | None" = None) -> dict:
+    t0 = time.perf_counter()
+    probes = TREE_PROBES
+    if t_start is not None:
+        # one probe fewer while the rest of the run would pass the guard
+        spent = t0 - t_start
+        while probes > 1 and spent + TREE_RESERVE_S - (TREE_PROBES - probes) * TREE_PROBE_S > RUN_GUARD_S:
+            probes -= 1
+        if probes < TREE_PROBES:
+            log(f"[cut] phase 11a probes {TREE_PROBES} -> {probes}: {spent:.3f} s so far, about "
+                f"{TREE_RESERVE_S:.0f} s to go with {TREE_PROBES}, past the {RUN_GUARD_S:.0f} s guard")
+    out = {"11a": tree_vs_flat(device_name, device, probes=probes)}
+    out["11b"] = tree_hash(TREE_HASH_N, TREE_HASH_KEYS, device_name, device)
+    out["11c"] = tree_tcp_fleets(TREE_TCP_FLEET_N, device_name, device, flat_wire)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[tree] phase 11 {out['phase_s']:.3f} s (11a {out['11a']['leg_s']:.3f} s, 11b {out['11b']['leg_s']:.3f} s, "
+        f"11c {out['11c']['leg_s']:.3f} s) on {device_name}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
@@ -3298,6 +3886,8 @@ def main() -> int:
     serve_b = lambda reps, t, want: serve_binned(reps, t, want, args.keys, name_power)
     serve_h = lambda reps, logs, want: serve_hash(reps, logs, want, args.keys // 8, name_power)
     if args.only:
+        if "11" in args.only:
+            log("[tree-metrics] " + json.dumps(phase_tree(name_power)))
         if "10" in args.only:
             m = phase_slice(args.keys // 8, serve=serve_h)
             b = phase_binned(args.keys, name_power, serve=serve_b)
@@ -3307,7 +3897,7 @@ def main() -> int:
             phase_cuda_vs_cpu()
         if "7" in args.only:
             reserve = (DURABILITY_RESERVE_S if "8" in args.only else 0.0) + (
-                TCP_RESERVE_S if "9" in args.only else 0.0)
+                TCP_RESERVE_S if "9" in args.only else 0.0) + (TREE_RESERVE_S if "11" in args.only else 0.0)
             log("[fleet-metrics] " + json.dumps(phase_fleet(name_power, t_start, reserve_s=reserve)))
         if "8" in args.only:
             log("[durability-metrics] " + json.dumps(phase_durability(name_power)))
@@ -3351,17 +3941,21 @@ def main() -> int:
     log("[fanin-metrics] " + json.dumps(f))
     log("[gossip-metrics] " + json.dumps(g))
     t_phase = time.perf_counter()
-    fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S)
+    fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S + TREE_RESERVE_S)
     phase_t["7"] = time.perf_counter() - t_phase
     log("[fleet-metrics] " + json.dumps(fl))
     t_phase = time.perf_counter()
-    du = phase_durability(name_power, keys=args.keys, hash_keys=args.keys // 8)
+    du = phase_durability(name_power, keys=args.keys, hash_keys=args.keys // 8, t_start=t_start)
     phase_t["8"] = time.perf_counter() - t_phase
     log("[durability-metrics] " + json.dumps(du))
     t_phase = time.perf_counter()
     tc = phase_tcp(name_power, t_start, keys=args.keys, hash_keys=args.keys // 8)
     phase_t["9"] = time.perf_counter() - t_phase
     log("[tcp-metrics] " + json.dumps(tc))
+    t_phase = time.perf_counter()
+    tr = phase_tree(name_power, flat_wire=tc["9c"]["wire_a"], t_start=t_start)
+    phase_t["11"] = time.perf_counter() - t_phase
+    log("[tree-metrics] " + json.dumps(tr))
     fleet_256 = fl.get("ingress_binned_256", {}).get("fleet_merges_per_sec")
     log(f"[durability] beside the runs without a WAL: 8a load_wal_s {du['8a']['load_wal_s']:.3f} s against 3b's "
         f"load_s {b['load_s']:.3f} s; 8c {du['8c']['fleet_wal_merges_per_sec']:.3f} merges/s against 7a's N=256 "
@@ -3370,14 +3964,16 @@ def main() -> int:
     # each hash-store path's launches were held against the plain
     # version on its own tables at the Q it launched at
     probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"],
-                               sv["10b"]["table_max_abs_err"])
+                               sv["10b"]["table_max_abs_err"], tr["11b"]["table_max_abs_err"])
     probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
                                  "durability_hash": du["8b"]["probe_launches"],
                                  "tcp_hash": tc["9b"]["launches"][probe_lookup_kernel.name],
                                  "tcp_fleet": tc["9c"]["launches"][probe_lookup_kernel.name],
                                  "serve_hash": sv["10b"]["launches"],
                                  "serve_binned": sv["10a"]["launches"][probe_lookup_kernel.name],
-                                 "serve_fleet": sv["10c"]["launches"][probe_lookup_kernel.name]}
+                                 "serve_fleet": sv["10c"]["launches"][probe_lookup_kernel.name],
+                                 "tree_binned": tr["11a"]["launches"][probe_lookup_kernel.name],
+                                 "tree_hash": tr["11b"]["launches"]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     # the replica paths' launches by the exact shape they ran at, each
     # row's launches and loss from its own shape: the headline rows take
@@ -3387,7 +3983,8 @@ def main() -> int:
     for when in ("launches_before_crash", "launches_during_recovery", "launches_after_recovery"):
         for k, n in du["8b"][when]["probe_by_shape"].items():
             by_shape[k] = by_shape.get(k, 0) + n
-    for k, n in list(tc["9b"]["probe_by_shape"].items()) + list(sv["10b"]["launches_by_shape"].items()):
+    for k, n in (list(tc["9b"]["probe_by_shape"].items()) + list(sv["10b"]["launches_by_shape"].items())
+                 + list(tr["11b"]["probe_by_shape"].items())):
         by_shape[k] = by_shape.get(k, 0) + n
     head_keys = set()
     for row in probe["shapes"]:
@@ -3401,7 +3998,7 @@ def main() -> int:
     roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
     roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"],
                                  "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0,
-                                 "serve": 0}
+                                 "serve": 0, "tree": tr["11a"]["launches"][batched_roots_kernel.name]}
     roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

@@ -92,7 +92,25 @@ def start_link(
     ``/varz`` through ``obs.serve()``); pass an
     :class:`~delta_crdt_ex_tpu_torch.runtime.metrics.Observability` for
     a plane of your own, and ``flight_dump_path`` to keep the flight
-    ring as JSON lines when the replica crashes."""
+    ring as JSON lines when the replica crashes.
+
+    Tree gossip (off by default, as in the JAX package):
+    ``tree_gossip=True`` replaces flat all-neighbour sync with a
+    spanning tree every replica derives alike from the sorted member
+    set and ``tree_seed``
+    (:mod:`delta_crdt_ex_tpu_torch.runtime.treesync`; no coordinator).
+    Leaves sync only their parent, and relays coalesce their inbound
+    merged rows into ONE re-emission per link per epoch: O(fanout) links
+    a member instead of O(neighbours), and a write cascades through the
+    relays within its round. Members of one fleet or one TCP endpoint
+    form a bottom-tier subtree whose captain alone gossips outward. A
+    relay's ``Down`` re-parents on every observer; past
+    ``tree_degrade_ratio`` locally down members the replica gossips flat
+    until membership settles. Knobs: ``tree_gossip``, ``tree_fanout``
+    (default 8, at least 2), ``tree_seed``, ``tree_degrade_ratio``
+    (default 0.25), ``tree_group`` (an explicit tier-0 cluster key); the
+    tree shows in ``Replica.stats()["tree"]`` and the ``crdt_tree_*``
+    metric family. Give every member the FULL membership as neighbours."""
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     replica = Replica(_resolve_store(crdt_module, store), **opts)
@@ -126,7 +144,13 @@ def start_fleet(
     leaves driving to the caller (``fleet.tick()`` / ``fleet.drain()``
     and ``fleet.sync_tick()`` or ``fleet.run_duties()``). ``obs=``
     registers the fleet and every member on the plane; ``mesh=`` raises:
-    it comes with a later slice."""
+    it comes with a later slice.
+
+    ``tree_gossip=True`` members are stamped with ONE shared tier-0
+    cluster key, so the whole fleet forms a single bottom-tier subtree of
+    the gossip spanning tree: hops inside the fleet are local mailbox
+    deliveries and only the captain gossips outward; relay re-emissions
+    ride the tick's frame collector like every other sync send."""
     if names is not None and len(names) != n:
         raise ValueError(f"{len(names)} names for {n} replicas")
     # one plane for every member and the fleet (resolved once)

@@ -44,8 +44,12 @@ slice), which raises ``NotImplementedError`` naming it (``ROADMAP.md``
 queue 1). A sync tick's sends to a peer process
 whose TCP connection negotiated fleet frames aggregate into ONE
 ``FleetFrameMsg`` per endpoint (:class:`_FrameCollector`), as in the
-JAX fleet. Port members have no relay epoch (tree gossip), so that step
-is absent. Members with a ``wal_dir`` log what
+JAX fleet. Tree-mode members (``tree_gossip=True``) share ONE tier-0
+group key (:func:`~delta_crdt_ex_tpu_torch.runtime.treesync.
+fleet_group_key`), so the fleet is a single bottom-tier subtree whose
+captain alone gossips outward; each tick's relay epoch runs after the
+ingress waves (:meth:`Fleet.tick`) and on the egress tick's send, so
+re-emissions ride the frame collector. Members with a ``wal_dir`` log what
 the batched merge commits through the solo commit tail, so a crashed
 member recovers as a solo replica.
 """
@@ -63,7 +67,7 @@ from delta_crdt_ex_tpu_torch.models.binned import pow2_tier
 from delta_crdt_ex_tpu_torch.models.binned_map import stack_entry_slices
 from delta_crdt_ex_tpu_torch.ops.binned import _i64
 from delta_crdt_ex_tpu_torch.runtime import metrics as metrics_mod
-from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition, treesync
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica, _LaneLevels, _StackedLevels
 from delta_crdt_ex_tpu_torch.utils import transfers
 from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
@@ -272,6 +276,15 @@ class Fleet:
             # member notify() wakes the FLEET loop, not a per-replica one
             r.notify = self._member_notify  # type: ignore[method-assign]
             r._in_fleet = True
+        #: tree gossip's tier 0: tree-mode members share ONE cluster key,
+        #: so the whole fleet is a single bottom-tier subtree — hops
+        #: inside it are local mailbox deliveries, and only the captain
+        #: gossips outward
+        if any(r.tree_gossip for r in self.replicas):
+            group = treesync.fleet_group_key([r.addr for r in self.replicas])
+            for r in self.replicas:
+                if r.tree_group is None:
+                    r.tree_group = group
         #: the observability plane: the fleet registers its own varz and
         #: health sources and a scrape-time collector of its counters
         #: (members register themselves through their own ``obs=``)
@@ -322,6 +335,12 @@ class Fleet:
             if pairs:
                 self._dispatch_wave(pairs)
             wave += 1
+        # the ingress side's relay epoch: what this tick's waves merged
+        # into relay members re-emits now, so propagation cascades tick
+        # by tick through the fleet instead of waiting for each member's
+        # next periodic sync
+        for rep, _units in per_member:
+            rep._relay_flush()
         if n_msgs:
             with self._lock:
                 self._ticks += 1
@@ -631,6 +650,7 @@ class Fleet:
                 if ent.solo:
                     rep._push_deltas(coll.send)
                     rep._open_walks(coll.send)
+                    rep._relay_flush(coll.send)
                     continue
                 tv = lane_trees.get(id(rep))
                 if tv is not None and rep._tree is None and rep._state_version == tv[2]:
@@ -641,6 +661,9 @@ class Fleet:
                         sl = rep._extract_push_job(job)
                     rep._emit_push_job(job, sl, coll.send)
                 rep._open_walks(coll.send)
+                # the tick's relay epoch: coalesced re-emissions ride the
+                # same send, so fleet frames aggregate them per endpoint
+                rep._relay_flush(coll.send)
 
         # phase 4 — ship the aggregated fleet frames, one per endpoint
         frames = frame_members = 0

@@ -37,8 +37,8 @@ This module is the aggregation layer on top of the port's events:
 The metric families are the JAX package's, names, help texts and label
 sets alike, less those whose events the port does not emit: the
 compile-cache family (``crdt_jit_compiles_total``; the port compiles
-nothing per shape), the mesh family (``crdt_mesh_*``) and the
-tree-gossip family (``crdt_tree_*``), which come with their slices.
+nothing per shape) and the mesh family (``crdt_mesh_*``), which comes
+with its slice.
 
 Metric naming scheme: every name is ``crdt_<noun>[_<unit>]`` with the
 Prometheus conventions — ``_total`` counters, ``_seconds`` / ``_bytes``
@@ -602,6 +602,61 @@ class MetricsBridge:
             "crdt_serve_read_retries_total",
             "Stale-snapshot read retries", ("name",),
         )
+        # tree gossip: the crdt_tree_* family — relay coalescing
+        # histograms (inbound frames folded into one re-emission, entries
+        # per merged re-emission), per-tier tx/rx byte counters, and the
+        # topology gauges TREE_TOPOLOGY keeps fresh (removed on
+        # unregister_replica: a stopped replica must not scrape stale)
+        self.tree_reemits = c(
+            "crdt_tree_reemits_total",
+            "Relay coalesced re-emissions shipped", ("name",),
+        )
+        self.tree_coalesce_depth = h(
+            "crdt_tree_relay_coalesce_depth",
+            "Inbound frames folded per relay re-emission", ("name",),
+            buckets=COUNT_BUCKETS,
+        )
+        self.tree_entries_per_reemit = h(
+            "crdt_tree_entries_per_reemit",
+            "Entries carried per merged relay re-emission", ("name",),
+            buckets=COUNT_BUCKETS,
+        )
+        self.tree_tx_bytes = c(
+            "crdt_tree_tx_bytes_total",
+            "Relay re-emission slice bytes shipped, by tree tier",
+            ("name", "tier"),
+        )
+        self.tree_rx_bytes = c(
+            "crdt_tree_rx_bytes_total",
+            "Inbound slice bytes folded into relay re-emissions, by tree tier",
+            ("name", "tier"),
+        )
+        self.tree_depth = g(
+            "crdt_tree_depth", "Spanning-tree depth of the derived topology",
+            ("name",),
+        )
+        self.tree_fanout = g(
+            "crdt_tree_fanout", "Configured relay fanout", ("name",)
+        )
+        self.tree_role = g(
+            "crdt_tree_role",
+            "Tree role (0 leaf / 1 relay / 2 root; degraded reads 0)",
+            ("name",),
+        )
+        self.tree_tier = g(
+            "crdt_tree_tier", "This replica's tier (distance from root)",
+            ("name",),
+        )
+        self.tree_members = g(
+            "crdt_tree_members", "Members in the derived tree", ("name",)
+        )
+        self.tree_degraded = g(
+            "crdt_tree_degraded",
+            "1 while degraded to flat gossip (0 tree-routed)", ("name",),
+        )
+        self._on_tree_relay = _with_batch(
+            self._on_tree_relay, self._on_tree_relay_batch
+        )
         # monotone by construction, hence the _total names despite the
         # set-to-absolute gauge primitive: the transfer ledger's audit
         # reports absolute per-site crossing/byte totals
@@ -658,6 +713,8 @@ class MetricsBridge:
             (telemetry.SERVE_ADMIT, self._on_serve_admit),
             (telemetry.SERVE_SHED, self._on_serve_shed),
             (telemetry.SERVE_READ, self._on_serve_read),
+            (telemetry.TREE_RELAY, self._on_tree_relay),
+            (telemetry.TREE_TOPOLOGY, self._on_tree_topology),
         ]
 
     def attach(self) -> "MetricsBridge":
@@ -842,6 +899,56 @@ class MetricsBridge:
             retries = g("retries", 0)
             if retries:
                 self.serve_read_retries._inc_held((name,), retries)
+
+    def _on_tree_relay(self, _event, meas, meta) -> None:
+        name = self._s(meta.get("name"))
+        lb = (name,)
+        tier_lb = (name, self._s(meta.get("tier", "0")))
+        g = meas.get
+        with self._lock:
+            self.tree_reemits._inc_held(lb)
+            # continuation emissions of a truncated window carry no depth
+            # sample: only completed windows shape the histogram
+            depth = g("depth")
+            if depth is not None:
+                self.tree_coalesce_depth._observe_held(lb, depth)
+            self.tree_entries_per_reemit._observe_held(lb, g("entries", 0))
+            self.tree_tx_bytes._inc_held(tier_lb, g("tx_bytes", 0))
+            rx = g("rx_bytes", 0)
+            if rx:
+                self.tree_rx_bytes._inc_held(tier_lb, rx)
+
+    def _on_tree_relay_batch(self, _event, meas_list, meta) -> None:
+        name = self._s(meta.get("name"))
+        lb = (name,)
+        tier_lb = (name, self._s(meta.get("tier", "0")))
+        tx = rx = 0
+        with self._lock:
+            depth_obs = self.tree_coalesce_depth._observe_held
+            entries_obs = self.tree_entries_per_reemit._observe_held
+            for meas in meas_list:
+                g = meas.get
+                depth = g("depth")
+                if depth is not None:
+                    depth_obs(lb, depth)
+                entries_obs(lb, g("entries", 0))
+                tx += g("tx_bytes", 0)
+                rx += g("rx_bytes", 0)
+            self.tree_reemits._inc_held(lb, len(meas_list))
+            self.tree_tx_bytes._inc_held(tier_lb, tx)
+            if rx:
+                self.tree_rx_bytes._inc_held(tier_lb, rx)
+
+    def _on_tree_topology(self, _event, meas, meta) -> None:
+        lb = (self._s(meta.get("name")),)
+        g = meas.get
+        with self._lock:
+            self.tree_depth._set_held(lb, g("depth", 0))
+            self.tree_fanout._set_held(lb, g("fanout", 0))
+            self.tree_role._set_held(lb, g("role", 0))
+            self.tree_tier._set_held(lb, g("tier", 0))
+            self.tree_members._set_held(lb, g("members", 0))
+            self.tree_degraded._set_held(lb, g("degraded", 0))
 
 
 # ----------------------------------------------------------------------
@@ -1269,6 +1376,12 @@ class Observability:
             self._g_mailbox, self._g_seq, self._g_payloads,
             self._g_outstanding, self._g_wal_segments, self._g_wal_bytes,
             self._g_wal_horizon,
+            # the tree-topology gauges are event-fed by the bridge but
+            # owned here: a stopped tree-mode replica must not scrape its
+            # last role and depth for ever
+            self.bridge.tree_depth, self.bridge.tree_fanout,
+            self.bridge.tree_role, self.bridge.tree_tier,
+            self.bridge.tree_members, self.bridge.tree_degraded,
         ):
             # serve gauges are NOT in this loop: unregister_serve (the
             # register_serve pair, invoked above and by Frontdoor.close)

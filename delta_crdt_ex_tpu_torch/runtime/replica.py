@@ -60,10 +60,19 @@ carries, line for line the JAX replica's semantics:
   its hard cap); fleet envelopes
   (``FleetFrameMsg``) handed to a mailbox whole fan out here.
 
-Tree gossip waits for a later slice: its options raise
-``NotImplementedError`` naming the slice (:data:`LATER_OPTIONS`). Sync slices always travel on the host plane
-(numpy ``EntriesMsg`` bodies in the JAX package's dtypes), so the wire
-stays the JAX package's and every one of them may coalesce.
+- tree gossip (``tree_gossip``, off by default as in the JAX package):
+  the replica derives the membership's spanning tree
+  (:mod:`delta_crdt_ex_tpu_torch.runtime.treesync`), monitors, pushes
+  to and walks toward its tree links only, and relays: what it merged
+  from one link re-emits, coalesced, as ONE merged slice per other link
+  per epoch (``_relay_flush``, at the end of each drain pass and each
+  sync tick); a ``Down`` re-parents, and past ``tree_degrade_ratio``
+  locally down members it gossips flat.
+
+The replica accepts every option the JAX replica accepts. Sync slices
+always travel on the host plane (numpy ``EntriesMsg`` bodies in the JAX
+package's dtypes), so the wire stays the JAX package's and every one of
+them may coalesce.
 """
 
 from __future__ import annotations
@@ -84,7 +93,7 @@ from delta_crdt_ex_tpu_torch.models.binned_map import BinnedAWLWWMap, CtxGapErro
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_CLEAR, OP_PAD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.binned import _i64, slice_from_wire, wire_from_host
 from delta_crdt_ex_tpu_torch.runtime import metrics as metrics_mod
-from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, tracing, transition
+from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, tracing, transition, treesync
 from delta_crdt_ex_tpu_torch.runtime.clock import Clock
 from delta_crdt_ex_tpu_torch.runtime.storage import (
     FileStorage,
@@ -131,30 +140,7 @@ _TR_WAL_ENTRIES = transfers.register("replica.wal_entries")
 _TR_GC_SCAN = transfers.register("replica.gc_scan")
 _TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
 _TR_SAME_STATE = transfers.register("replica.same_state")
-
-#: JAX-replica options this port does not implement yet → the later
-#: slice that brings them (``ROADMAP.md`` queue 1) and the value that
-#: leaves the feature off (passing that value is accepted; ``...`` =
-#: the option only tunes an unported feature, so any value raises)
-LATER_OPTIONS = {
-    "tree_gossip": ("tree gossip", False),
-    "tree_fanout": ("tree gossip", ...),
-    "tree_seed": ("tree gossip", ...),
-    "tree_degrade_ratio": ("tree gossip", ...),
-    "tree_group": ("tree gossip", None),
-}
-
-
-def _check_later(opts: dict) -> None:
-    for name, value in opts.items():
-        if name not in LATER_OPTIONS:
-            raise TypeError(f"Replica() got an unexpected keyword argument {name!r}")
-        slice_name, off = LATER_OPTIONS[name]
-        if off is ... or value is not off and value != off:
-            raise NotImplementedError(
-                f"option {name}={value!r} is not ported to PyTorch yet; it "
-                f"comes with the {slice_name} slice (ROADMAP.md queue 1)"
-            )
+_TR_RELAY_ACCOUNTING = transfers.register("replica.relay_accounting")
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -321,12 +307,15 @@ class Replica:
         catchup_chunk_rows: int = 1024,
         catchup_suffix_ratio: float = 4.0,
         gc_interval_ops: int = 4096,
+        tree_gossip: bool = False,
+        tree_fanout: int = 8,
+        tree_seed: int = 0,
+        tree_degrade_ratio: float = 0.25,
+        tree_group=None,
         obs=None,
         flight_dump_path: str | None = None,
         device="cuda",
-        **later,
     ):
-        _check_later(later)
         if max_sync_size == "infinite":
             self.max_sync_size: float = float("inf")
         elif isinstance(max_sync_size, int) and not isinstance(max_sync_size, bool) and max_sync_size > 0:
@@ -508,6 +497,53 @@ class Replica:
         self._catchup_rows_applied = 0
         self._catchup_horizon_fallbacks = 0
         self._catchup_last_duration = 0.0
+        #: tree gossip: with ``tree_gossip`` the replica syncs along the
+        #: membership's spanning tree (``runtime/treesync.py``): leaves
+        #: sync only their parent, relays coalesce inbound children's
+        #: merged rows and re-emit ONE merged slice per link per epoch
+        #: (``_relay_flush``). Every replica derives the same tree from
+        #: the sorted member set and ``tree_seed`` (no coordinator); a
+        #: ``Down`` re-derives, and past ``tree_degrade_ratio`` locally
+        #: down members it gossips flat
+        self.tree_gossip = bool(tree_gossip)
+        self.tree_fanout = int(tree_fanout)
+        if self.tree_gossip and self.tree_fanout < 2:
+            raise ValueError(f"tree_fanout must be >= 2, got {tree_fanout!r}")
+        self.tree_seed = int(tree_seed)
+        self.tree_degrade_ratio = float(tree_degrade_ratio)
+        #: tier-0 cluster key (``treesync.group_of``): a fleet stamps its
+        #: members with one shared key, so the fleet forms ONE
+        #: bottom-tier subtree whose captain alone gossips outward
+        self.tree_group = tree_group
+        self._tree_topo: "treesync.TreeTopology | None" = None
+        self._tree_down: set[Any] = set()
+        self._tree_degraded = False
+        self._tree_probe_ts = 0.0
+        #: REVERSE links: peers outside our tree view that keep opening
+        #: walks toward us (their view has us as a link — divergent
+        #: views mid-churn) → deadline; we sync back toward them until
+        #: they stop, so every view edge is bidirectional
+        self._tree_reverse: dict[Any, float] = {}
+        #: relay state, all under ``_lock``: per link, the ordered set
+        #: of bucket rows still to re-emit (a dict of insertion-ordered
+        #: dicts: the order decides the groups and the message order, as
+        #: in the JAX replica) and the inbound messages folded into it.
+        #: ``_relay_defer`` parks each merge's (sources, rows, bytes) with
+        #: its insert/kill count accessor; the next flush reads every
+        #: parked count with ONE transfer and stamps only the messages
+        #: whose merge changed state — a no-op merge relays nothing,
+        #: which is what ends relay cycles between divergent views
+        self._relay_defer: list = []
+        self._relay_pending: dict[Any, dict[int, None]] = {}
+        self._relay_fold: dict[Any, int] = {}
+        self._relay_rx_pending = 0
+        self._relay_reemits = 0
+        self._relay_msgs_folded = 0
+        self._relay_entries_emitted = 0
+        self._relay_rows_emitted = 0
+        self._relay_tx_bytes = 0
+        self._relay_rx_bytes = 0
+        self._relay_depth_hist: dict[int, int] = {}
         self._tree: _LazyLevels | None = None
         #: full-read result cache, maintained incrementally by local
         #: flushes while complete; ``_read_cache_kh`` maps each cached
@@ -975,6 +1011,16 @@ class Replica:
             self._ack_seq = {a: s for a, s in self._ack_seq.items() if a in addrs}
             self._sync_open_seq = {a: s for a, s in self._sync_open_seq.items() if a in addrs}
             self._catchup = {a: s for a, s in self._catchup.items() if a in addrs}
+            if self.tree_gossip:
+                # membership moved: re-derive the spanning tree (every
+                # replica fed the same member list lands on the same
+                # topology), and forget the failure and relay state of
+                # members that left
+                self._tree_topo = None
+                self._tree_down &= set(addrs)
+                self._relay_pending = {a: p for a, p in self._relay_pending.items() if a in addrs}
+                self._relay_fold = {a: c for a, c in self._relay_fold.items() if a in addrs}
+                self._tree_reverse = {a: t for a, t in self._tree_reverse.items() if a in addrs}
             self.sync_to_all()
 
     # ------------------------------------------------------------------
@@ -1461,12 +1507,18 @@ class Replica:
 
     def sync_to_all(self) -> None:
         """One sync round to all monitored neighbours: push own fresh
-        deltas, then open the digest-walk round."""
+        deltas, then open the digest-walk round; in tree mode the tick's
+        relay epoch follows."""
         with self._lock:
             self._flush()
+            if self.tree_gossip:
+                self._tree_probe_down()
             self._monitor_neighbours()
             self._push_deltas()
             self._open_walks()
+        # the tick's relay epoch: everything merged since the last flush
+        # re-emits as ONE merged slice per tree link (no-op when flat)
+        self._relay_flush()
 
     def _open_walks(self, send=None) -> None:
         """Open digest-walk rounds toward every monitored neighbour — the
@@ -1601,13 +1653,296 @@ class Replica:
                     self._rm_cursor[n] = job.new_cursor
 
     def _monitor_neighbours(self) -> None:
-        for n in list(self._neighbours):
+        """Monitor the sync targets: every neighbour when flat; in tree
+        mode the tree links plus the live reverse edges."""
+        topo = self._tree_refresh()
+        if topo is None:
+            targets = list(self._neighbours)
+        else:
+            links = topo.links(self.addr)
+            now = time.monotonic()
+            for a in [a for a, t in self._tree_reverse.items() if t <= now]:
+                # the peer stopped syncing us: its view caught up (or it
+                # left), so the reverse edge retires
+                del self._tree_reverse[a]
+                if a not in links and a in self._monitors:
+                    self.transport.demonitor(self.addr, a)
+                    self._monitors.discard(a)
+            targets = links + [a for a in self._tree_reverse if a not in links]
+        for n in targets:
             if n in self._monitors:
                 continue
             if self.transport.monitor(self.addr, n):
+                # covers Down-then-up rejoins too: sync_to_all opens a
+                # round toward every monitor right after this
                 self._monitors.add(n)
+                if n in self._tree_down:
+                    # a tree link came back: re-derive so the rejoined
+                    # member regains its deterministic slot
+                    self._tree_down.discard(n)
+                    self._tree_topo = None
             else:
                 logger.debug("tried to monitor a dead neighbour: %r", n)
+                if topo is not None and n != self.addr:
+                    # an unmonitorable TREE LINK is a down observation:
+                    # re-derive now instead of stalling this edge until a
+                    # Down that may never come (we were not monitoring)
+                    self._tree_down.add(n)
+                    self._tree_topo = None
+
+    # -- tree gossip ------------------------------------------------------
+    #
+    # Tree mode points the existing sync machinery at the replica's
+    # spanning-tree links instead of the whole neighbour set: the
+    # monitors (and through them _eager_jobs, _open_walks and the
+    # full-row push) cover links only, so own deltas ride the unchanged
+    # delta-interval path one edge at a time. What is new is the RELAY:
+    # merged inbound slices re-emit onward, coalesced — one merged
+    # extraction per link per epoch, not N forwarded frames.
+
+    def _tree_refresh(self) -> "treesync.TreeTopology | None":
+        """The current spanning tree, derived lazily and memoised until
+        membership or failure state moves — or ``None`` when this replica
+        gossips flat (tree mode off, or degraded past
+        ``tree_degrade_ratio`` locally observed down members). Caller
+        holds the lock."""
+        if not self.tree_gossip:
+            return None
+        members = set(self._neighbours) | {self.addr}
+        down = self._tree_down & members
+        if treesync.too_damaged(len(members), len(down), self.tree_degrade_ratio):
+            if not self._tree_degraded:
+                self._tree_degraded = True
+                self._tree_topo = None
+                self._flight("tree_degrade", down=len(down), members=len(members))
+                self._tree_telemetry(None, len(members), len(down))
+            return None
+        if self._tree_degraded:
+            # membership recovered: re-derive out of the flat fallback
+            self._tree_degraded = False
+            self._tree_topo = None
+        topo = self._tree_topo
+        if topo is not None:
+            return topo
+        transport = self.transport
+        topo = treesync.derive_tree(
+            members,
+            fanout=self.tree_fanout,
+            seed=self.tree_seed,
+            down=down,
+            group_key=lambda a: treesync.group_of(transport, a),
+        )
+        self._tree_topo = topo
+        # monitors narrow to the new links (and live reverse edges): a
+        # dropped link must not keep feeding _eager_jobs / _open_walks
+        # (its cursors stay: soft state, re-covered if the edge returns)
+        links = set(topo.links(self.addr)) | set(self._tree_reverse)
+        for a in [m for m in self._monitors if m not in links]:
+            self.transport.demonitor(self.addr, a)
+            self._monitors.discard(a)
+            self._outstanding.pop(a, None)
+        self._flight(
+            "tree_epoch", epoch=topo.epoch, role=topo.role(self.addr),
+            tier=int(topo.tier.get(self.addr, 0)), depth=topo.depth,
+        )
+        self._tree_telemetry(topo, len(members), len(down))
+        return topo
+
+    _TREE_ROLE_CODE = {"leaf": 0, "relay": 1, "root": 2}
+
+    def _tree_telemetry(self, topo, members: int, down: int) -> None:
+        if telemetry.has_handlers(telemetry.TREE_TOPOLOGY):
+            telemetry.execute(
+                telemetry.TREE_TOPOLOGY,
+                {
+                    "depth": 0 if topo is None else topo.depth,
+                    "fanout": self.tree_fanout,
+                    "tier": 0 if topo is None else int(topo.tier.get(self.addr, 0)),
+                    "role": 0 if topo is None else self._TREE_ROLE_CODE[topo.role(self.addr)],
+                    "members": members,
+                    "down": down,
+                    "degraded": int(topo is None),
+                },
+                {"name": self.name},
+            )
+
+    def _tree_probe_down(self) -> None:
+        """Throttled liveness probe of locally down NON-link members (a
+        link's rejoin is seen by ``_monitor_neighbours``): without it, a
+        down member that never re-enters our links would stay out of
+        the tree for ever. Caller holds the lock."""
+        if not self._tree_down:
+            return
+        now = time.monotonic()
+        if now < self._tree_probe_ts + max(2 * self.sync_interval, 1.0):
+            return
+        self._tree_probe_ts = now
+        rejoined = [a for a in self._tree_down if self.transport.alive(a)]
+        if rejoined:
+            self._tree_down.difference_update(rejoined)
+            self._tree_topo = None
+
+    def _relay_note_merge(self, msgs: list, counts_fn, offsets=None) -> None:
+        """Park one committed merge for the next relay flush: each
+        message's (source, bucket rows, bytes) with the merge's raw
+        insert/kill count accessor. The flush reads every parked count
+        with ONE transfer and stamps rows toward every tree link but the
+        source edge — only for messages whose merge changed state. That
+        changed-only gate is load-bearing: a no-op merge relays nothing,
+        so a cycle formed by transiently divergent tree views ends as
+        soon as the content stops being news. ``counts_fn`` hands back
+        the count tensors as they are (never read them here: one device
+        read per message is what the deferral exists to avoid). Caller
+        holds the lock."""
+        if not self.tree_gossip or self._replaying:
+            return
+        topo = self._tree_refresh()
+        if topo is None or not topo.links(self.addr):
+            return
+        metas = []
+        for m in msgs:
+            rows = [int(b) for b in np.asarray(m.buckets).tolist()]
+            nbytes = sum(int(v.nbytes) for v in m.arrays.values() if hasattr(v, "nbytes"))
+            metas.append((m.frm, rows, nbytes))
+        self._relay_defer.append((metas, counts_fn, offsets))
+
+    @staticmethod
+    def _relay_changed_per_msg(data, offsets, depth: int) -> list:
+        """Per-message changed-entry counts from one fetched count pair:
+        whole-slice scalars for a solo merge, per-row arrays and member
+        offsets for a grouped one."""
+        ins, kill = data
+        if offsets is None:
+            return [int(np.asarray(ins)) + int(np.asarray(kill))]
+        tot = np.cumsum(np.asarray(ins, np.int64) + np.asarray(kill, np.int64))
+        out = []
+        for lo, hi in offsets[:depth]:
+            if hi > lo:
+                out.append(int(tot[hi - 1]) - (int(tot[lo - 1]) if lo else 0))
+            else:
+                out.append(0)
+        return out
+
+    def _relay_stamp_deferred(self, topo) -> None:
+        """Drain the parked merges into per-link pending rows: one
+        transfer for every parked count, then host-only stamping. Caller
+        holds the lock."""
+        defer, self._relay_defer = self._relay_defer, []
+        if not defer:
+            return
+        links = topo.links(self.addr)
+        fetched = _TR_RELAY_ACCOUNTING.get([fn() for _m, fn, _o in defer])
+        for (metas, _fn, offsets), data in zip(defer, fetched):
+            changed = self._relay_changed_per_msg(data, offsets, len(metas))
+            for (frm, rows, nbytes), n_changed in zip(metas, changed):
+                if not rows or not n_changed:
+                    continue
+                self._relay_rx_pending += nbytes
+                for a in links:
+                    if a == frm:
+                        continue
+                    pend = self._relay_pending.setdefault(a, {})
+                    for b in rows:
+                        pend[b] = None
+                    self._relay_fold[a] = self._relay_fold.get(a, 0) + 1
+
+    def _relay_flush(self, send=None) -> int:
+        """Re-emit pending relayed rows: for each group of links whose
+        pending window is identical (in a steady fan-in, every link but
+        the source), extract the rows from the MERGED state once
+        (``extract_rows``, the walk's own idempotent full-row shape, so
+        a lost re-emission heals as a lost walk transfer does) and fan
+        the slice out — N inbound frames become one merged re-emission
+        per link per epoch. At most ``min(max_sync_size, num_buckets)``
+        rows a link a flush; the rest stays pending. Returns the
+        messages emitted. The slice is read from the state under the
+        lock, and nothing is written into a published tensor."""
+        if not self.tree_gossip:
+            return 0
+        faultpoint("replica.relay.flush")
+        with self._lock:
+            if not self._relay_pending and not self._relay_defer:
+                return 0
+            topo = self._tree_refresh()
+            if topo is None:
+                # degraded to flat: every member hears writers directly
+                # again, and the periodic walks heal anything in flight
+                self._relay_defer.clear()
+                self._relay_pending.clear()
+                self._relay_fold.clear()
+                self._relay_rx_pending = 0
+                return 0
+            self._relay_stamp_deferred(topo)
+            if not self._relay_pending:
+                return 0
+            t0 = time.perf_counter()
+            links = set(topo.links(self.addr))
+            for a in [a for a in self._relay_pending if a not in links]:
+                self._relay_pending.pop(a, None)
+                self._relay_fold.pop(a, None)
+            limit = int(min(self.max_sync_size, self.num_buckets))
+            groups: dict[tuple, list] = {}
+            for a, pend in self._relay_pending.items():
+                batch = tuple(list(pend)[:limit])
+                if batch:
+                    groups.setdefault(batch, []).append(a)
+            if not groups:
+                return 0
+            send = self.transport.send if send is None else send
+            emitted: list[dict] = []
+            for batch, peers in groups.items():
+                arrays, payloads = self._extract_rows_wire(np.asarray(batch, np.int64))
+                buckets = np.asarray(batch, np.int64)
+                tx = sum(int(v.nbytes) for v in arrays.values() if hasattr(v, "nbytes"))
+                for a in peers:
+                    msg = sync_proto.EntriesMsg(
+                        originator=self.addr, frm=self.addr, to=a,
+                        buckets=buckets, arrays=arrays, payloads=payloads,
+                    )
+                    if not send(a, msg):
+                        continue
+                    pend = self._relay_pending.get(a)
+                    drained = False
+                    if pend is not None:
+                        for b in batch:
+                            pend.pop(b, None)
+                        if not pend:
+                            self._relay_pending.pop(a, None)
+                            drained = True
+                    # fold accounting is per COMPLETED window: a flush cut
+                    # at the row cap leaves the link's fold count in place
+                    # and this continuation adds no depth sample
+                    folded = self._relay_fold.pop(a, 0) if drained else None
+                    self._relay_reemits += 1
+                    self._relay_entries_emitted += len(payloads)
+                    self._relay_rows_emitted += len(batch)
+                    self._relay_tx_bytes += tx
+                    meas = {
+                        "entries": len(payloads),
+                        "buckets": len(batch),
+                        "tx_bytes": tx,
+                        "rx_bytes": 0,
+                        "duration_s": 0.0,
+                    }
+                    if folded is not None:
+                        self._relay_msgs_folded += folded
+                        self._relay_depth_hist[folded] = self._relay_depth_hist.get(folded, 0) + 1
+                        meas["depth"] = folded
+                    emitted.append(meas)
+            if not emitted:
+                return 0
+            rx, self._relay_rx_pending = self._relay_rx_pending, 0
+            self._relay_rx_bytes += rx
+            if telemetry.has_handlers(telemetry.TREE_RELAY):
+                # flush-level quantities ride the first message's row
+                emitted[0]["rx_bytes"] = rx
+                emitted[0]["duration_s"] = time.perf_counter() - t0
+                telemetry.execute_many(
+                    telemetry.TREE_RELAY,
+                    emitted,
+                    {"name": self.name, "tier": str(int(topo.tier.get(self.addr, 0)))},
+                )
+            return len(emitted)
 
     def handle(self, msg) -> None:
         with self._lock:
@@ -1632,6 +1967,16 @@ class Replica:
             elif isinstance(msg, Down):
                 self._monitors.discard(msg.addr)
                 self._outstanding.pop(msg.addr, None)
+                if self.tree_gossip:
+                    # deterministic mid-epoch re-parent: every replica
+                    # that observed this Down derives the same tree over
+                    # the survivors on its next refresh (or degrades to
+                    # flat gossip past the damage threshold)
+                    self._tree_down.add(msg.addr)
+                    self._tree_topo = None
+                    self._relay_pending.pop(msg.addr, None)
+                    self._relay_fold.pop(msg.addr, None)
+                    self._tree_reverse.pop(msg.addr, None)
                 # a dead peer must not gate segment reclaim forever
                 self._ack_seq.pop(msg.addr, None)
                 self._sync_open_seq.pop(msg.addr, None)
@@ -1665,6 +2010,18 @@ class Replica:
         forward_fleet_entries(self.transport, msg.entries, local)
 
     def _handle_diff(self, msg: sync_proto.DiffMsg) -> None:
+        if self.tree_gossip and msg.frm != self.addr and msg.originator == msg.frm:
+            # ORIGINATOR frames only (openers and the originator's deeper
+            # blocks) prove that the peer's own view has us as a sync
+            # target; mid-walk replies in rounds WE opened must not
+            # count, or our polling of a reverse peer would refresh its
+            # deadline for ever
+            topo = self._tree_refresh()
+            if topo is not None and msg.frm not in topo.links(self.addr):
+                # a non-link peer syncing us: its view has us as a link
+                # (divergent views mid-churn) — sync back toward it until
+                # it stops, so every view edge is bidirectional
+                self._tree_reverse[msg.frm] = time.monotonic() + max(6 * self.sync_interval, 3.0)
         self._flush()
         tree = self._ensure_tree()
         end_level, end_idx = sync_proto.walk(
@@ -1854,6 +2211,10 @@ class Replica:
         except BaseException as e:
             self._commit_abort(e)
             raise
+        # relay bookkeeping: the merged rows park for the next flush's
+        # changed-only stamping toward every tree link but the source
+        # (the two count tensors only, never the whole result)
+        self._relay_note_merge([msg], lambda ins=res.n_inserted, kill=res.n_killed: (ins, kill))
         if want_diffs:
             keys_a = self._winner_records_rows(rows_np[rows_np >= 0])
             touched: dict[int, Any] = {}
@@ -2275,6 +2636,11 @@ class Replica:
                 self._handle_batch(batch)
                 if len(batch) < self.ingress_batch:
                     break
+            # end-of-drain relay epoch: everything this pass merged
+            # re-emits as ONE coalesced slice per tree link, so
+            # propagation cascades hop by hop through the relays instead
+            # of waiting a sync interval per tree level
+            self._relay_flush()
         finally:
             if top:
                 with self._lock:
@@ -2467,6 +2833,11 @@ class Replica:
         # commit boundary of the grouped paths (solo grouped and fleet
         # batched): state stored, payloads registered
         self._publish_serve()
+        # relay bookkeeping shares this tail, so the grouped solo path and
+        # the fleet's batched path park their relay stamps alike (the
+        # singleton path parks in _handle_entries_inner); counts_fn is the
+        # accessor the SYNC_DONE deferral reads too
+        self._relay_note_merge(msgs, counts_fn, offsets)
         depth = len(msgs)
         if telemetry.has_handlers(telemetry.SYNC_DONE):
             name = self.name
@@ -2639,7 +3010,10 @@ class Replica:
         member; ``catchup`` the log-shipping chunks served and applied,
         rows, bytes, padding and horizon fallbacks; ``wal`` (None
         without a WAL) the records since the last compaction, the
-        reclaim floor, the segment count and the log horizon."""
+        reclaim floor, the segment count and the log horizon; ``tree``
+        (only in tree mode) the derived tree's epoch, this replica's
+        role, tier and links, and the relay's re-emissions, folds and
+        bytes."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
@@ -2690,6 +3064,30 @@ class Replica:
                 "transfers": transfers.snapshot(),
                 "wal": None,
             }
+            if self.tree_gossip:
+                topo = self._tree_refresh()
+                reemits = self._relay_reemits
+                out["tree"] = {
+                    "degraded": topo is None,
+                    "epoch": None if topo is None else topo.epoch,
+                    "role": "flat" if topo is None else topo.role(self.addr),
+                    "tier": 0 if topo is None else int(topo.tier.get(self.addr, 0)),
+                    "depth": 0 if topo is None else topo.depth,
+                    "fanout": self.tree_fanout,
+                    "members": 0 if topo is None else len(topo.members),
+                    "down": len(self._tree_down),
+                    "links": [] if topo is None else [str(a) for a in topo.links(self.addr)],
+                    "reemits": reemits,
+                    "msgs_folded": self._relay_msgs_folded,
+                    "folds_per_reemit": round(self._relay_msgs_folded / reemits, 3) if reemits else 0.0,
+                    "entries_reemitted": self._relay_entries_emitted,
+                    "rows_reemitted": self._relay_rows_emitted,
+                    "tx_bytes": self._relay_tx_bytes,
+                    "rx_bytes": self._relay_rx_bytes,
+                    "depth_hist": dict(sorted(self._relay_depth_hist.items())),
+                    "pending_links": len(self._relay_pending),
+                    "pending_rows": sum(len(p) for p in self._relay_pending.values()),
+                }
             if self._wal is not None:
                 out["wal"] = {
                     "uncompacted_records": self._wal_unc,
@@ -2729,7 +3127,12 @@ class Replica:
                     time.monotonic() - self._loop_ts < max(5 * self.sync_interval, 2.0)
                 )
             wal_ok = self._wal is None or os.access(self._wal.directory, os.W_OK)
-            neighbours = [n for n in self._neighbours if n != self.addr]
+            # tree mode: readiness is about OUR sync edges (the tree
+            # links), not the whole membership — a leaf monitoring only
+            # its parent is healthy by design
+            topo = self._tree_refresh()
+            targets = self._neighbours if topo is None else topo.links(self.addr)
+            neighbours = [n for n in targets if n != self.addr]
             unreachable = [n for n in neighbours if n not in self._monitors]
         return {
             "ok": loop_ok and wal_ok and not unreachable,

@@ -5,10 +5,10 @@ The reference fires ``[:delta_crdt, :sync, :done]`` with
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
 contract here, plus the capacity-growth, sync-round, ingress-coalescing,
 WAL, log-shipping catch-up, fleet dispatch/egress, serving-plane,
-transfer-ledger and fault-trip events, under the same attach/execute
-API. The mesh and tree-gossip events come with their slices;
-``JIT_COMPILE`` has no counterpart (the port compiles nothing per
-shape).
+tree-gossip relay/topology, transfer-ledger and fault-trip events,
+under the same attach/execute API. The mesh event comes with its
+slice; ``JIT_COMPILE`` has no counterpart (the port compiles nothing
+per shape).
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
 (the port imports nothing of the JAX package).
@@ -34,6 +34,8 @@ FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_
 SERVE_ADMIT = ("delta_crdt", "serve", "admit")  # measurements: ops, duration_s; metadata: name
 SERVE_SHED = ("delta_crdt", "serve", "shed")  # measurements: ops; metadata: name, reason
 SERVE_READ = ("delta_crdt", "serve", "read")  # measurements: reads, retries, duration_s; metadata: name, mode ("keys"|"full"|"scan")
+TREE_RELAY = ("delta_crdt", "tree", "relay")  # measurements: entries, buckets, tx_bytes, rx_bytes, duration_s, depth (completed windows only); metadata: name, tier
+TREE_TOPOLOGY = ("delta_crdt", "tree", "topology")  # measurements: depth, fanout, tier, role (0 leaf/1 relay/2 root), members, down, degraded; metadata: name
 TRANSFER = ("delta_crdt", "transfer", "crossing")  # measurements: crossings, bytes (absolute per-site ledger totals); metadata: site
 FAULT_TRIP = ("delta_crdt", "fault", "trip")  # measurements: trips (per trip); metadata: site
 

@@ -34,9 +34,9 @@ from contextlib import contextmanager
 
 #: the closed fault-point vocabulary. One label == one call site, so a
 #: chaos schedule naming a site pins exactly one program point. The
-#: port wires the ``fleet.*``, ``replica.*`` (but ``replica.relay.flush``,
-#: which comes with tree gossip) and ``wal.*`` points; ``transport.*``
-#: come with the TCP transport.
+#: port wires all twelve: the ``fleet.*``, ``replica.*`` (the relay
+#: flush of tree gossip included), ``transport.*`` (the TCP transport)
+#: and ``wal.*`` points.
 SITES = (
     "fleet.loop",
     "replica.commit.batch",

@@ -155,6 +155,7 @@ def test_port_imports_no_jax():
         "from delta_crdt_ex_tpu_torch import TcpTransport\n"
         "import delta_crdt_ex_tpu_torch.runtime.serve, delta_crdt_ex_tpu_torch.runtime.metrics\n"
         "import delta_crdt_ex_tpu_torch.runtime.obs_server, delta_crdt_ex_tpu_torch.runtime.tracing\n"
+        "import delta_crdt_ex_tpu_torch.runtime.treesync\n"
         "from delta_crdt_ex_tpu_torch import Frontdoor, FleetFrontdoor, Observability, ObsServer, Overloaded, frontdoor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
@@ -223,13 +224,14 @@ def test_stats_on_both_stores(store):
 @pytest.mark.parametrize(
     "opts, err",
     [
-        # the serving and observability slice's options now work (None:
-        # the call succeeds; the cases keep the ids they had while these
-        # options raised); the tree-gossip options still raise
+        # the options of the serving and observability slice and of the
+        # tree-gossip slice now work (None: the call succeeds; the cases
+        # keep the ids they had while these options raised); an unknown
+        # option still raises
         pytest.param({"obs": True}, None, id="opts0-NotImplementedError"),
-        ({"store": "hash", "tree_fanout": 2}, NotImplementedError),
+        pytest.param({"store": "hash", "tree_gossip": True, "tree_fanout": 2}, None, id="opts1-NotImplementedError"),
         pytest.param({"store": "hash", "flight_dump_path": "x"}, None, id="opts2-NotImplementedError"),
-        ({"store": "hash", "tree_gossip": True}, NotImplementedError),
+        pytest.param({"store": "hash", "tree_gossip": True}, None, id="opts3-NotImplementedError"),
         ({"store": "hash", "no_such_option": 1}, TypeError),
     ],
 )
@@ -246,6 +248,12 @@ def test_unported_options_raise(opts, err):
         if opts.get("obs"):
             assert r._obs is metrics.default_observability() and r.flight is not None
         assert r.flight_dump_path == opts.get("flight_dump_path")
+        if opts.get("tree_gossip"):
+            # alone, the replica is its own tree: it gossips flat
+            tree = r.stats()["tree"]
+            assert tree["fanout"] == opts.get("tree_fanout", 8) and tree["role"] == "flat"
+        else:
+            assert "tree" not in r.stats()
         r.mutate("add", ["k", 1])
         assert r.frontdoor().read_keys(["k"]) == {"k": 1}
     finally:
