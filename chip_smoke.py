@@ -4,6 +4,8 @@ one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the full run: phases 1-11
     python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a, 9b, 10a and 10b at a cut key count
+    python3 chip_smoke.py --only 3b       # the build and phase 3b alone (no result lines)
+    python3 chip_smoke.py --only 45       # the build, phase 4 and phases 5 and 5p (no result lines)
     python3 chip_smoke.py --only 7        # the build and phase 7 alone (no result lines)
     python3 chip_smoke.py --only 8        # the build and phase 8 alone (no result lines)
     python3 chip_smoke.py --only 9        # the build and phase 9 alone (no result lines)
@@ -13,8 +15,10 @@ one NVIDIA GPU.
 Phases (each raises on failure; any failure exits nonzero):
 
 1. build the port's CUDA kernels from ``delta_crdt_ex_tpu_torch/csrc/``
-   (one ``nvcc`` per source, started together) and print each one's
-   ptxas lines, the card's name and its power limit;
+   (one ``nvcc`` per source, started together) and its native hasher
+   from ``delta_crdt_ex_tpu_torch/native/fasthash.cpp`` (one ``g++``,
+   beside them) and print each one's ptxas lines, the ``g++`` line, the
+   card's name and its power limit;
 2. kernels vs plain versions on the card: the probe-window lookup
    kernel against ``probe_lookup_ref`` on seeded tables at every shape
    of ``PROBE_SHAPES`` (H ∈ {8, 16, 256, 2^21}, W ∈ {1, 5, 8, 12, 16,
@@ -53,7 +57,10 @@ Phases (each raises on failure; any failure exits nonzero):
    one full ``read()`` of replica 2 — then equal canonical bytes, reads
    equal to the written map, every state tensor on the card, grouped
    ingress dispatches, and neither kernel launched (this path runs
-   none, as in the JAX package);
+   none, as in the JAX package); every loaded key and value went
+   through the native hasher (its counter), which is bit-equal to the
+   ``hashlib`` path on 65536 seeded terms, and its load beside the
+   ``hashlib`` path's hashing time for the same terms;
 4. small deterministic scripts (``threaded=False``, ``LogicalClock``)
    on ``cuda`` and on ``cpu`` give identical ``canonical_state_bytes()``,
    diff feeds and ``stats()["ingress"]``: an ``AWLWWMap`` pair on the
@@ -63,7 +70,13 @@ Phases (each raises on failure; any failure exits nonzero):
    fleet counters too); the
    fan-in of phase 5 at ``bench.py``'s smoke geometry (4096 keys,
    L = 2^8, B = 64, 4 neighbours, 4 × 128-entry deltas per call, 1 + 2
-   calls) gives identical stack columns and roots on both;
+   calls) gives identical stack columns and roots on both, and so does
+   the same fan-in on the packed layout (``pack_states`` →
+   ``fanout_merge_packed`` in scomp and in top_k mode, and
+   ``merge_slice_packed_fused``: identical words, aux tables, flags,
+   counts and roots), and the growth script of
+   ``tests/test_packed_parity.py`` (kill budget, bin tier and gid table
+   all overflow) through ``fanout_merge_into`` on a packed stack;
 5. the fan-in at full size (``bench.py``'s north star, column layout):
    ``build_state`` over 1,000,000 seeded keys (L = 2^14, B = 128, R = 8)
    broadcast to 64 neighbours, then 1 warm-up and 6 timed calls of
@@ -77,6 +90,16 @@ Phases (each raises on failure; any failure exits nonzero):
    bit-equal, the incremental leaf against ``compact_rows``, the alive
    key set against the host's, and the final roots against
    ``batched_roots_ref``;
+5p. the same fan-in on the packed layout (``bench.py``'s primary,
+   ``packed_scomp``: ``fanout_merge_packed(scatter_compact=True,
+   rows_sorted=True)``, then its A/B alternate ``packed_topk``), from
+   phase 5's base state broadcast to 64 lanes and packed, over phase
+   5's 7 delta groups, one stack freed before the next is built: the
+   same metrics and a traced call each, the stack bytes of both
+   layouts; checks: every flag and count, the 64 lanes' words and aux
+   tables equal, ``unpack`` of lane 0 bit-equal to phase 5's final
+   column lane 0, the final roots equal to phase 5's, the roots kernel
+   launched 7 times a run and bit-equal to ``batched_roots_ref``;
 6. ring gossip: 8 lanes of that geometry, each first given its own
    writer's 4096 fresh keys by ``merge_into``, then 7
    ``ring_gossip_round``s, each followed by the roots; every root and
@@ -84,7 +107,8 @@ Phases (each raises on failure; any failure exits nonzero):
    and context over global writer ids) equal;
 7. fleets, ``bench.py --fleet``'s legs on the card (members of 64
    buckets, capacity 1024, ``LogicalClock``, 4 fresh keys a sender a
-   round, 1 warm-up + 5 timed rounds): the ingress leg (n senders each
+   round, 1 warm-up + 3 timed rounds, the bench's 5 cut so that the run
+   fits its time): the ingress leg (n senders each
    pushing to one fleet member and its solo twin; ``fleet.drain()``
    against the twins' ``process_pending()``) on the binned store at
    N = 256 and 1024 (512 only if the run would otherwise pass
@@ -165,7 +189,8 @@ Phases (each raises on failure; any failure exits nonzero):
    port's front door (``api.frontdoor``), run on the loaded pairs of
    phases 3 and 3b before they stop. 10a, phase 3b's pair (the default
    store at 2^20 keys, never cut), a front door with
-   ``max_commit_ops=256`` on replica 1: leg A, 64 clients x 150 ops,
+   ``max_commit_ops=256`` on replica 1: leg A, 64 clients x 50 ops (the
+   bench's 150 cut so that the run fits its time),
    grouped admission against the per-op ``mutate`` loop, in ops/s;
    leg B, 20 snapshot ``read_keys`` finish while replica 1's lock is
    held; the open-loop mix (70% single-key ``read_keys``, half of them
@@ -175,7 +200,7 @@ Phases (each raises on failure; any failure exits nonzero):
    2.5 s each after one unmeasured soak, p50/p99 per class; one
    profiler trace (``tracing.trace``) of a 256-op admission commit and
    a 2048-key ``read_keys``: device busy share, top ops, spans; leg C,
-   a fresh replica at the same geometry takes 32 x 150 concurrent ops
+   a fresh replica at the same geometry takes 32 x 50 concurrent ops
    through a journalling front door and an unloaded twin replays the
    journal through ``apply_ops`` (state columns, canonical bytes and
    WAL bytes bit-equal); the ``obs=True`` overhead (1024-op batches in
@@ -212,14 +237,15 @@ Phases (each raises on failure; any failure exits nonzero):
    relay's re-emits, folds and depth histogram and the tree's shape;
    then a tier-1 relay crashes: its observers derive one epoch, the
    membership update gives every survivor that epoch, one more probe
-   reaches every survivor, and they end canonical-equal. 11b, 16
-   threaded hash-store replicas in tree mode (fanout 4, depth 2) with
+   reaches every survivor, and they end canonical-equal. 11b, 8
+   threaded hash-store replicas (16 until a whole run passed 1200 s)
+   in tree mode (fanout 4, depth 2) with
    phase 3's configuration and a feed each: 2^14 keys (an eighth of
    phase 3's, cut so that the run fits its time) into a tier-2 leaf until every
-   replica holds them, 10 single-op writes timed to their arrival at the
+   replica holds them, 5 single-op writes timed to their arrival at the
    last replica, 1% removed, ``read_keys`` of 4096 keys on every
    replica; equal canonical bytes, every acknowledged write read back
-   and every feed equal to the written map on all 16, one epoch with
+   and every feed equal to the written map on all 8, one epoch with
    roles root, relay and leaf and relay re-emits; the probe kernel's
    launches by (H, W, Q) join the kernel line, and it is held bit-equal
    to its plain version on a tier-1 relay's own table at every Q the
@@ -272,16 +298,25 @@ def gpu_name_power() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from delta_crdt_ex_tpu_torch import native
     from delta_crdt_ex_tpu_torch.utils import kernels
 
     t0 = time.perf_counter()
-    built = kernels.build_all(verbose=True)
-    for name, (path, out) in built.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build]   {name}: {line.strip()}")
-        log(f"[build] {name}: {path.name}")
-    log(f"[build] {len(built)} kernels built in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        hasher = pool.submit(native.build)  # one g++ beside the nvcc builds
+        built = kernels.build_all(verbose=True)
+        for name, (path, out) in built.items():
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line or "error" in line.lower():
+                    log(f"[build]   {name}: {line.strip()}")
+            log(f"[build] {name}: {path.name}")
+        so, out = hasher.result()
+    log(f"[build] native hasher: {native.gxx()} {' '.join(native.GXX_FLAGS)} "
+        f"{native.SRC.relative_to(Path(__file__).resolve().parent)} -> {so.name}"
+        + (f"; g++ said: {out.strip()}" if out.strip() else ""))
+    log(f"[build] {len(built)} kernels and the native hasher built in {time.perf_counter() - t0:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +958,62 @@ def batch_breakdown(r, n_ops: int = 1024) -> dict:
     return out
 
 
+#: seeded terms the native hasher is held bit-equal to ``hashlib`` on
+HASHER_TERMS = 65536
+
+
+def seeded_terms(n: int, seed: int = 10) -> list:
+    """``n`` terms of every canonical kind the replicas hash: strings,
+    wide ints, byte strings of 0-300 bytes (across the 128-byte block
+    edge), tuples, floats, None, nested lists."""
+    g = np.random.default_rng(seed)
+    ints = g.integers(-(2**62), 2**62, n).tolist()
+    lens = g.integers(0, 300, n).tolist()
+    out = []
+    for i in range(n):
+        kind = i % 6
+        if kind == 0:
+            out.append(f"term{ints[i]}")
+        elif kind == 1:
+            out.append(ints[i] * (1 << (i % 70)))
+        elif kind == 2:
+            out.append(g.bytes(lens[i]))
+        elif kind == 3:
+            out.append(("k", ints[i], i))
+        elif kind == 4:
+            out.append(ints[i] / 7.0 if i % 5 else None)
+        else:
+            out.append([i, [str(ints[i])], {"n": i}])
+    return out
+
+
+def hasher_check(n_keys: int, device_name: str) -> dict:
+    """The native hasher against the ``hashlib`` path on
+    :data:`HASHER_TERMS` seeded terms (bit-equal or raise), then both
+    hashing the terms of phase 3b's load (``n_keys`` keys and values),
+    timed on the card's host."""
+    from delta_crdt_ex_tpu_torch.utils import hashing as h
+
+    terms = seeded_terms(HASHER_TERMS)
+    for fast, ref in ((h.key_hash64_batch, h.key_hash64_batch_ref), (h.value_hash32_batch, h.value_hash32_batch_ref)):
+        got, want = fast(terms), ref(terms)
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            bad = np.nonzero(got != want)[0][:4].tolist()
+            raise AssertionError(f"native {fast.__name__} differs from hashlib at terms {bad}")
+    keys, values = [f"key{i}" for i in range(n_keys)], list(range(n_keys))
+    m: dict = {"terms_checked": len(terms)}
+    for tag, kf, vf in (("native", h.key_hash64_batch, h.value_hash32_batch),
+                        ("hashlib", h.key_hash64_batch_ref, h.value_hash32_batch_ref)):
+        t0 = time.perf_counter()
+        kf(keys)
+        vf(values)
+        m[f"load_hash_{tag}_s"] = time.perf_counter() - t0
+    log(f"[hasher] native hasher bit-equal to hashlib on {len(terms)} seeded terms (key ids and value "
+        f"digests); hashing phase 3b's {n_keys} keys and values: native {m['load_hash_native_s']:.3f} s, "
+        f"hashlib {m['load_hash_hashlib_s']:.3f} s on the host of {device_name}")
+    return m
+
+
 def phase_binned(n_keys: int, device_name: str, device: str = "cuda", serve=None) -> dict:
     """Phase 3b; ``serve(reps, transport, want)``, when given, runs on the
     loaded pair after the phase's checks (phase 10a), its result the
@@ -932,11 +1023,13 @@ def phase_binned(n_keys: int, device_name: str, device: str = "cuda", serve=None
     import torch
 
     import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch import native
     from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
     from delta_crdt_ex_tpu_torch.runtime import telemetry
     from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
 
+    hasher = hasher_check(n_keys, device_name)
     t = LocalTransport()
     arrivals = SyncDoneCount("binned1")
     telemetry.attach(telemetry.SYNC_DONE, arrivals)
@@ -950,19 +1043,28 @@ def phase_binned(n_keys: int, device_name: str, device: str = "cuda", serve=None
     ]
     r1, r2 = reps
     deadline = time.perf_counter() + SLICE_BUDGET_S
-    m: dict = {"keys": n_keys, "buckets": r1.num_buckets, "bin_capacity": r1.state.bin_capacity}
+    m: dict = {"keys": n_keys, "buckets": r1.num_buckets, "bin_capacity": r1.state.bin_capacity, "hasher": hasher}
     try:
         dc.set_neighbours(r1, [r2])
         dc.set_neighbours(r2, [r1])
         probe_lookup_kernel.reset()  # this path's run starts here: it launches neither kernel
         batched_roots_kernel.reset()
 
+        native.reset_counts()
         t0 = time.perf_counter()
         dc.mutate_batch(r1, "add", [[f"key{i}", i] for i in range(n_keys)], timeout=SLICE_BUDGET_S)
         m["load_s"] = time.perf_counter() - t0
+        m["native_hashed"] = native.counts()
         m["converge_s"] = arrivals.wait(n_keys, deadline, f"{n_keys} keys on replica 2") - t0
         log(f"[binned] {n_keys} keys (L={r1.num_buckets} B={r1.state.bin_capacity}): mutate_batch "
             f"{m['load_s']:.3f} s, on replica 2 after {m['converge_s']:.3f} s on {device_name}")
+        if min(m["native_hashed"].values()) < n_keys:
+            raise AssertionError(f"the load's terms did not all go through the native hasher: "
+                                 f"{m['native_hashed']} for {n_keys} keys and values")
+        log(f"[binned] the load's {n_keys} keys and values all went through the native hasher (terms hashed "
+            f"natively during the load {m['native_hashed']}); load {m['load_s']:.3f} s, of which hashing "
+            f"alone takes {hasher['load_hash_native_s']:.3f} s native against {hasher['load_hash_hashlib_s']:.3f} "
+            f"s by the per-term hashlib path the load took before the native hasher, on {device_name}")
 
         m.update(timed_propagations(r1, r2, t, arrivals, deadline, lambda i: f"prop{i}"))
         log(f"[binned] 10 single-op propagations (ms): {[round(x, 3) for x in m['propagation_ms']]} median "
@@ -1247,9 +1349,99 @@ def phase_cuda_vs_cpu() -> None:
         calls += 1
     log(f"[det] fan-in at the smoke geometry: {calls} calls, stack columns and roots identical on cuda and cpu")
 
+    from delta_crdt_ex_tpu_torch.ops.packed import packed_to_numpy
+
+    for layout in ("packed_scomp", "packed_topk", "packed_fused"):
+        runs = {dev: run_fanin(FANIN_SMOKE, dev, keep_states=True, layout=layout) for dev in ("cuda", "cpu")}
+        calls = 0
+        for (sa, ra), (sb, rb), xa, xb in zip(runs["cuda"]["per_call"], runs["cpu"]["per_call"],
+                                             runs["cuda"]["results"], runs["cpu"]["results"]):
+            ca, cb = packed_to_numpy(sa), packed_to_numpy(sb)
+            for c in ca:
+                if not np.array_equal(ca[c], cb[c]):
+                    raise AssertionError(f"{layout} fan-in call {calls}: {c} differs between cuda and cpu")
+            for f in xa._fields[1:]:
+                if not np.array_equal(getattr(xa, f).cpu().numpy(), getattr(xb, f).numpy()):
+                    raise AssertionError(f"{layout} fan-in call {calls}: {f} differs between cuda and cpu")
+            if not bool(xa.ok.all()):
+                raise AssertionError(f"{layout} fan-in call {calls}: merge overflow")
+            if not np.array_equal(ra.cpu().numpy(), rb.numpy()):
+                raise AssertionError(f"{layout} fan-in call {calls}: roots differ between cuda and cpu")
+            calls += 1
+        log(f"[det] {layout} fan-in at the smoke geometry: {calls} calls, words, aux tables, flags, counts "
+            f"and roots identical on cuda and cpu")
+    a, b = packed_growth_script("cuda"), packed_growth_script("cpu")
+    for k in a:
+        if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            raise AssertionError(f"packed growth script: {k} differs between cuda and cpu")
+    log(f"[det] packed growth script through fanout_merge_into (kill budget, bin tier and gid table "
+        f"overflow): {a['retries']} retries to B={a['tiers'][0]} R={a['tiers'][1]}, {a['grows']} grows; "
+        f"words, aux tables, flags and counts identical on cuda and cpu, unpacked equal to the column stack's")
+
+
+def packed_growth_script(device: str) -> dict:
+    """``tests/test_packed_parity.py:130``'s growth script on ``device``
+    without the JAX harness: 8 neighbours (16 buckets × 4 slots, a
+    2-slot writer table holding their own writer and the origin's) that
+    hold the origin's 32 entries, and one state-form slice from a third
+    writer that removes all 32 and adds 48, through ``fanout_merge_into``
+    on the packed stack with kill budget 2: the kill budget, the bins
+    and the writer table all overflow. Checks that the stack grew and
+    that it unpacks equal to the same merge on the column stack."""
+    import dataclasses
+
+    import torch
+
+    from delta_crdt_ex_tpu_torch.models.binned import COLUMNS
+    from delta_crdt_ex_tpu_torch.ops.binned import RowSlice
+    from delta_crdt_ex_tpu_torch.ops.packed import packed_to_numpy, unpack
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import fanout_merge_into, pack_states, stack_states
+    from delta_crdt_ex_tpu_torch.utils.synth import build_state
+
+    L, n = 16, 8
+    top = np.uint64(1 << 63)
+    keys = np.array([b + 16 * j for j in range(2) for b in range(L)], np.uint64) | top
+    one, _ = build_state(500, keys, L, 4, 2, device=device)
+    stack = stack_states([one] * n)
+    own = torch.tensor([100 + i for i in range(n)], device=device)
+    stack = dataclasses.replace(stack, ctx_gid=torch.stack([stack.ctx_gid[:, 0], own], 1))
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.uint64).view(np.int64), device=device)
+    new_keys = np.array([[b + 16 * (2 + j) for j in range(3)] for b in range(L)], np.uint64) | top
+    sl = RowSlice(
+        rows=torch.arange(L, device=device),
+        key=i64(new_keys),
+        valh=torch.full((L, 3), 7000, dtype=torch.int64, device=device),
+        ts=torch.arange(200, 200 + 3 * L, device=device).reshape(L, 3),
+        node=torch.zeros((L, 3), dtype=torch.int32, device=device),
+        ctr=torch.arange(1, 4, device=device).expand(L, 3).contiguous(),
+        alive=torch.ones((L, 3), dtype=torch.bool, device=device),
+        ctx_rows=torch.stack([torch.full((L,), 3, device=device), one.ctx_max[:, 0]], 1),
+        ctx_lo=torch.zeros((L, 2), dtype=torch.int64, device=device),
+        ctx_gid=torch.tensor([999, 500], device=device),
+    )
+    grows = []
+    pk, res, retries = fanout_merge_into(pack_states(stack), sl, kill_budget=2, on_grow=grows.append)
+    col, _, col_retries = fanout_merge_into(stack, sl, kill_budget=2)
+    if not bool(res.ok.all()) or retries < 1 or col_retries != retries:
+        raise AssertionError(f"packed growth on {device}: ok {res.ok.tolist()}, {retries} retries "
+                             f"(columns {col_retries})")
+    if pk.bin_capacity < 8 or pk.replica_capacity < 4 or not grows:
+        raise AssertionError(f"packed growth on {device}: tiers B={pk.bin_capacity} R={pk.replica_capacity}")
+    if int(res.n_killed.sum()) != 32 * n or int(res.n_inserted.sum()) != 48 * n:
+        raise AssertionError(f"packed growth on {device}: killed {res.n_killed.tolist()}, "
+                             f"inserted {res.n_inserted.tolist()}")
+    up = unpack(pk)
+    for c in COLUMNS:
+        if not torch.equal(getattr(up, c), getattr(col, c)):
+            raise AssertionError(f"packed growth on {device}: unpacked {c} differs from the column stack's")
+    out = packed_to_numpy(pk)
+    out.update({f: getattr(res, f).cpu().numpy() for f in res._fields[1:]})
+    out.update(retries=retries, tiers=(pk.bin_capacity, pk.replica_capacity), grows=len(grows))
+    return out
+
 
 # ---------------------------------------------------------------------------
-# phases 5-6: the fan-in (bench.py's north star, column layout)
+# phases 5, 5p and 6: the fan-in (bench.py's north star) on both entry layouts
 
 #: ``bench.py``'s full geometry (N_KEYS, TREE_DEPTH, BIN_CAP, RCAP,
 #: NEIGHBOURS, DELTA, GROUP, CALLS, WARMUP_CALLS, the delta bin width)
@@ -1288,46 +1480,85 @@ def call_stats(dts: list, per_call: int) -> dict:
     }
 
 
-def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
+#: the fan-in's entry layouts: phase 5's columns (``fanout_merge``);
+#: ``bench.py``'s primary on the packed layout and its A/B alternate
+#: (phase 5p); the fused-aux packed merge (phase 4 only)
+FANIN_LAYOUTS = ("columns", "packed_scomp", "packed_topk", "packed_fused")
+
+
+def fanin_merge(layout: str):
+    """One fan-in call's merge on ``layout``:
+    ``(stack, slice, kill_budget, max_inserts) -> MergeResult``."""
+    from delta_crdt_ex_tpu_torch.ops.packed import merge_slice_packed_fused
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import fanout_merge, fanout_merge_packed
+
+    if layout == "columns":
+        return fanout_merge
+    if layout == "packed_fused":
+        return merge_slice_packed_fused
+    scomp = {"packed_scomp": True, "packed_topk": False}[layout]
+    # interval_delta_stream's rows strictly ascend (bench.py vouches so)
+    return lambda st, sl, kb, mi: fanout_merge_packed(st, sl, kb, mi, scatter_compact=scomp, rows_sorted=True)
+
+
+def entry_bytes(stack) -> int:
+    """Bytes of a stack's entry table: the seven entry columns, or the
+    packed words."""
+    if hasattr(stack, "words"):
+        return stack.words.numel() * stack.words.element_size()
+    return sum(getattr(stack, c).numel() * getattr(stack, c).element_size()
+               for c in ("key", "valh", "ts", "node", "ctr", "alive", "ehash"))
+
+
+def run_fanin(geo: dict, device: str, keep_states: bool = False, layout: str = "columns",
+              prior: "dict | None" = None) -> dict:
     """``bench.py``'s fan-in on ``device``: a single-writer state over
-    ``geo["keys"]`` seeded keys broadcast to N neighbours, then
-    warm-up + timed calls, each one ``fanout_merge`` of a group of
-    interval deltas from a second writer and the stack's roots. The
-    timed calls are enqueued back to back and stamped as each one
-    completes, as ``bench.py`` does; on ``cuda`` the stamps are CUDA
-    events recorded after each call (the host stamps of ``bench.py``
-    would collapse here, because enqueueing a call takes the host most
-    of a call's device time). Returns the final stack, each call's
-    results, the per-call completion intervals and host enqueue times,
-    and the host copies of the keys."""
+    ``geo["keys"]`` seeded keys broadcast to N neighbours (packed, on a
+    packed ``layout``), then warm-up + timed calls, each one merge of a
+    group of interval deltas from a second writer (:func:`fanin_merge`)
+    and the stack's roots. The timed calls are enqueued back to back and
+    stamped as each one completes, as ``bench.py`` does; on ``cuda`` the
+    stamps are CUDA events recorded after each call (the host stamps of
+    ``bench.py`` would collapse here, because enqueueing a call takes
+    the host most of a call's device time). ``prior``, an earlier run's
+    result, hands over its base state, keys and delta groups, so that a
+    second layout merges exactly the same work. Returns the final stack,
+    each call's results, the per-call completion intervals and host
+    enqueue times, and the host copies of the keys."""
     import torch
 
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
-    from delta_crdt_ex_tpu_torch.parallel.batched_sync import fanout_merge, stack_states
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import pack_states, stack_states
     from delta_crdt_ex_tpu_torch.utils.synth import build_state, interval_delta_stream
 
     L, n_calls = geo["L"], geo["warmup"] + geo["calls"]
-    rng = np.random.default_rng(0)  # bench.py make_workload(seed=0)
-    keys = rng.integers(1, 1 << 63, size=geo["keys"], dtype=np.uint64)
-    if len(np.unique(keys)) != len(keys):
-        raise AssertionError("seeded keys are not distinct")
-    t0 = time.perf_counter()
-    one, _ = build_state(11, keys, L, geo["B"], geo["R"], device=device)
-    stack = stack_states([one] * geo["N"])
-    next_ctr, slices = None, []
-    for _ in range(n_calls + 1):  # the last one is the traced call's
-        (sl,), next_ctr = interval_delta_stream(
-            22, rng, 1, geo["group"] * geo["delta"], L, next_ctr=next_ctr,
-            bin_width=geo["bin_width"], device=device,
-        )
-        slices.append(sl)
-    spare = slices.pop()
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    if prior is None:
+        rng = np.random.default_rng(0)  # bench.py make_workload(seed=0)
+        keys = rng.integers(1, 1 << 63, size=geo["keys"], dtype=np.uint64)
+        if len(np.unique(keys)) != len(keys):
+            raise AssertionError("seeded keys are not distinct")
+        one, _ = build_state(11, keys, L, geo["B"], geo["R"], device=device)
+        next_ctr, slices = None, []
+        for _ in range(n_calls + 1):  # the last one is the traced call's
+            (sl,), next_ctr = interval_delta_stream(
+                22, rng, 1, geo["group"] * geo["delta"], L, next_ctr=next_ctr,
+                bin_width=geo["bin_width"], device=device,
+            )
+            slices.append(sl)
+        spare = slices.pop()
+        delta_keys = np.concatenate([s.key[s.alive].cpu().numpy() for s in slices]).view(np.uint64)
+    else:
+        one, keys, slices, spare, delta_keys = (prior[k] for k in ("one", "keys", "slices", "spare", "delta_keys"))
+    stack = stack_states([one] * geo["N"])
+    if layout != "columns":
+        stack = pack_states(stack)  # the column stack is freed here
+    merge = fanin_merge(layout)
     sync()
     setup_s = time.perf_counter() - t0
     setup_bytes = torch.cuda.memory_allocated() if cuda else 0
-    delta_keys = np.concatenate([s.key[s.alive].cpu().numpy() for s in slices]).view(np.uint64)
 
     def stamp():
         if not cuda:
@@ -1345,7 +1576,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
             t0 = time.perf_counter()
             marks.append(stamp())
         t1 = time.perf_counter()
-        res = fanout_merge(stack, sl, 8, geo["group"] * geo["delta"])
+        res = merge(stack, sl, 8, geo["group"] * geo["delta"])
         stack = res.state
         roots = batched_roots(stack.leaf)
         # flags and counts only: a kept state would hold a whole stack
@@ -1365,8 +1596,8 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False) -> dict:
         "stack": stack, "one": one, "keys": keys, "delta_keys": delta_keys, "slices": slices,
         "spare": spare, "per_call": [(s, r) for s, r, _ in per_call], "results": [x for _, _, x in per_call],
         "call_dts": call_dts, "enqueue_s": enqueue_s, "wall_s": wall_s, "launches": launches,
-        "launches_by_shape": by_shape,
-        "setup_s": setup_s, "setup_bytes": setup_bytes,
+        "launches_by_shape": by_shape, "layout": layout, "merge": merge, "roots": roots,
+        "setup_s": setup_s, "setup_bytes": setup_bytes, "stack_bytes": entry_bytes(stack),
     }
 
 
@@ -1390,6 +1621,7 @@ def phase_fanin(device_name: str) -> dict:
     m["aggregate_merges_per_sec"] = geo["calls"] * geo["group"] * geo["N"] / run["wall_s"]
     m["setup_mem_bytes"] = run["setup_bytes"]
     m["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    m["stack_bytes"] = run["stack_bytes"]
     log(f"[fanin] {geo['keys']} keys, {geo['N']} neighbours, L={geo['L']} B={geo['B']}: set-up "
         f"{run['setup_s']:.3f} s; {geo['calls']} timed calls of {geo['group']} x {geo['delta']}-entry "
         f"deltas: per-call ms (device, CUDA events) {[round(x, 3) for x in m['call_ms']]}, host "
@@ -1444,7 +1676,89 @@ def phase_fanin(device_name: str) -> dict:
         f"{m['trace']['busy_ms']:.3f} ms (idle share {m['trace']['idle_share']:.4f}); device ms "
         f"by op: {[(k, round(v, 3)) for k, v in m['trace']['ops']]}")
     m["base"] = run["one"]
+    # what phase 5p merges again and holds its packed result against
+    m["prior"] = {k: run[k] for k in ("one", "keys", "slices", "spare", "delta_keys")}
+    m["prior"]["lane0"] = map_columns(lambda x: x[0].clone(), stack)
+    m["prior"]["roots"] = run["roots"].clone()
     return m
+
+
+def phase_fanin_packed(device_name: str, prior: dict) -> dict:
+    """Phase 5p: phase 5's fan-in on the packed layout, ``packed_scomp``
+    (``bench.py``'s primary) then ``packed_topk`` (its A/B alternate),
+    each from phase 5's base state over phase 5's delta groups, one
+    stack freed before the next is built."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.models.binned import COLUMNS
+    from delta_crdt_ex_tpu_torch.ops.packed import PackedStore, unpack
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel, batched_roots_ref
+
+    geo = FANIN_FULL
+    n_delta = geo["group"] * geo["delta"]
+    out: dict = {}
+    for layout in ("packed_scomp", "packed_topk"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = run_fanin(geo, "cuda", layout=layout, prior=prior)
+        stack = run["stack"]
+        m: dict = {"setup_s": run["setup_s"], "launches": run["launches"],
+                   "launches_by_shape": {f"{n}x{L}": c for (n, L), c in run["launches_by_shape"].items()},
+                   "call_ms": [d * 1e3 for d in run["call_dts"]], "enqueue_ms": [d * 1e3 for d in run["enqueue_s"]]}
+        m.update(call_stats(run["call_dts"], geo["group"] * geo["N"]))
+        m["aggregate_merges_per_sec"] = geo["calls"] * geo["group"] * geo["N"] / run["wall_s"]
+        m["setup_mem_bytes"] = run["setup_bytes"]
+        m["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        m["stack_bytes"] = run["stack_bytes"]
+        if not isinstance(stack, PackedStore) or stack.words.dtype != torch.int32:
+            raise AssertionError(f"{layout}: the stack is not 32-bit packed words")
+        log(f"[fanin-packed] {layout}: {geo['keys']} keys, {geo['N']} neighbours, L={geo['L']} B={geo['B']}: "
+            f"set-up {run['setup_s']:.3f} s; {geo['calls']} timed calls of {geo['group']} x {geo['delta']}-entry "
+            f"deltas: per-call ms (device, CUDA events) {[round(x, 3) for x in m['call_ms']]}, host enqueue ms "
+            f"{[round(x, 3) for x in m['enqueue_ms']]}; merges/s {m['merges_per_sec']:.3f} ({m['stat']}, min "
+            f"{m['call_rate_min']:.3f}, max {m['call_rate_max']:.3f}), aggregate {m['aggregate_merges_per_sec']:.3f}; "
+            f"words {m['stack_bytes']} B; memory after set-up {m['setup_mem_bytes']} B, peak {m['peak_mem_bytes']} B "
+            f"on {device_name}")
+        for i, res in enumerate(run["results"]):
+            flags = torch.stack([res.need_gid_grow, res.need_kill_tier, res.need_fill_compact,
+                                 res.need_ctx_gap, res.need_ins_tier]).any(dim=1).tolist()
+            if not bool(res.ok.all()):
+                raise AssertionError(f"{layout} call {i}: merge overflow (gid/kill/fill/gap/ins) {flags}")
+            want = int(prior["slices"][i].alive.sum())
+            if want != n_delta or not bool((res.n_inserted == want).all()) or bool(res.n_killed.any()):
+                raise AssertionError(f"{layout} call {i}: inserted {res.n_inserted.tolist()[:4]}..., "
+                                     f"killed {int(res.n_killed.sum())}, want {want} and 0")
+        for f in ("words", "fill", "amin", "amax", "leaf", "ctx_gid", "ctx_max"):
+            col = getattr(stack, f)
+            if not bool((col == col[:1]).all()):
+                raise AssertionError(f"{layout}: lanes differ in {f}")
+        lane0 = unpack(PackedStore(**{f: getattr(stack, f)[0] for f in
+                                      ("words", "fill", "amin", "amax", "leaf", "ctx_gid", "ctx_max")}))
+        for c in COLUMNS:
+            if not torch.equal(getattr(lane0, c), getattr(prior["lane0"], c)):
+                raise AssertionError(f"{layout}: unpack(lane 0) differs from phase 5's column lane 0 in {c}")
+        del lane0
+        if not torch.equal(run["roots"], prior["roots"]):
+            raise AssertionError(f"{layout}: final roots differ from phase 5's")
+        if m["launches"] != geo["warmup"] + geo["calls"]:
+            raise AssertionError(f"{layout}: roots kernel launched {m['launches']} times, want "
+                                 f"{geo['warmup'] + geo['calls']}")
+        # launches below compare the kernel with its plain version
+        m["roots_max_abs_err"] = int((batched_roots_kernel(stack.leaf) - batched_roots_ref(stack.leaf)).abs().max())
+        if m["roots_max_abs_err"] != 0:
+            raise AssertionError(f"{layout}: roots kernel disagrees with batched_roots_ref on the final stack")
+        log(f"[fanin-packed] {layout} checks: every ok, {n_delta} inserted and 0 killed per lane and call, "
+            f"{geo['N']} lanes' words and aux tables equal, unpack(lane 0) bit-equal to phase 5's column lane 0, "
+            f"final roots equal to phase 5's; roots kernel launches {m['launches']}, bit-equal to batched_roots_ref")
+        merge = run["merge"]
+        m["trace"] = trace_call(lambda: batched_roots(merge(stack, prior["spare"], 8, n_delta).state.leaf))
+        log(f"[fanin-packed-trace] {layout}, one call: wall {m['trace']['wall_ms']:.3f} ms, device busy "
+            f"{m['trace']['busy_ms']:.3f} ms (idle share {m['trace']['idle_share']:.4f}); device ms by op: "
+            f"{[(k, round(v, 3)) for k, v in m['trace']['ops']]} on {device_name}")
+        out[layout] = m
+        del run, stack
+    torch.cuda.empty_cache()
+    return out
 
 
 def trace_call(fn, top: int = 10) -> dict:
@@ -1545,10 +1859,11 @@ def phase_ring_gossip(base) -> dict:
 
 #: ``bench.py``'s fleet geometry (``bench.py:1791-1794``): 64 buckets a
 #: replica (tree_depth 6), capacity (1 << 6) x 16, 4 fresh keys per
-#: sender a round, 1 warm-up and 5 timed rounds
+#: sender a round, 1 warm-up and 3 timed rounds (the bench's 5, cut so
+#: that the whole run ends well inside its limit)
 FLEET_DEPTH = 6
 FLEET_KEYS_PER_ROUND = 4
-FLEET_ROUNDS = 5
+FLEET_ROUNDS = 3
 
 
 class _Sink:
@@ -1852,8 +2167,10 @@ FLEET_LEGS = [("ingress", 256, None), ("ingress", 1024, None), ("egress", 256, N
 
 
 #: the whole run's guard, seconds: phase 7a's N = 1024 leg runs at 512
-#: only if the run would otherwise pass it (a run must end within 1200 s)
-RUN_GUARD_S = 1000.0
+#: only if the run would otherwise pass it (a run must end within 1200 s).
+#: On an H100 at 700 W whole runs took 899-1121 s with the guard at
+#: 1000 s, and one past 1200 s: the guard leaves 500 s of the limit for a slower host
+RUN_GUARD_S = 700.0
 
 
 def phase_fleet(device_name: str, t_start: float, legs=FLEET_LEGS, reserve_s: float = 0.0) -> dict:
@@ -2723,7 +3040,9 @@ def phase_tcp(device_name: str, t_start: float, keys: int = TCP_KEYS, hash_keys:
 #: workers, rates (fractions of the calibrated closed-loop capacity),
 #: seconds a rate, the read mix's hot pool
 SERVE_CLIENTS = 64
-SERVE_PER_CLIENT = 150
+#: (the bench's 150 ops a client, cut: leg A's per-op loop alone took
+#: about 65 s of 10a's 114 s at 150 on an H100 at 700 W)
+SERVE_PER_CLIENT = 50
 SERVE_COMMIT_OPS = 256
 SERVE_WORKERS = 16
 SERVE_RATE_FRACS = (0.3, 0.7)
@@ -3345,16 +3664,21 @@ TREE_DEPTH = 6
 #: of phase 3's 2^17, cut so that the phase fits the run's time (at 2^16
 #: keys 11b took 145.240 s on an H100 at 700 W, at 2^14 101.800 s:
 #: sixteen replica threads share one interpreter, and a single-op write
-#: takes about 3 s to reach the last replica at either size)
-TREE_HASH_N = 16
+#: takes about 3 s to reach the last replica at either size; 16
+#: replicas until a whole run passed 1200 s, 8 keep the depth-2 tree
+#: with root, relays and leaves)
+TREE_HASH_N = 8
 TREE_HASH_FANOUT = 4
 TREE_HASH_KEYS = 1 << 14
+#: 11b's single-op writes timed to the last replica (10 until a whole run
+#: passed 1200 s: each takes about 3-8 s on an H100 at 700 W)
+TREE_HASH_PROPS = 5
 #: 11c: members of each TCP fleet (phase 9c's)
 TREE_TCP_FLEET_N = 64
 #: seconds phase 11 needs after phase 9 with 3 probes (what the guards
 #: of phases 7, 8 and 9 keep free for it, and 11a's own probe cut reads):
 #: on an H100 at 700 W it took 404.777 s in a whole run (11a 304.974 s,
-#: 11b 91.898 s at 2^14 keys, 11c 7.075 s)
+#: 11b 91.898 s at 2^14 keys on 16 replicas, 11c 7.075 s)
 TREE_RESERVE_S = 410.0
 
 
@@ -3623,9 +3947,9 @@ def tree_hash(n: int, n_keys: int, device_name: str, device: str = "cuda", fanou
     """Phase 11b: ``n`` threaded hash-store replicas in tree mode with
     phase 3's configuration (sync interval 20 ms, ``max_sync_size`` 500,
     an ``on_diffs`` feed each); a tier-2 leaf takes ``n_keys`` keys by
-    ``mutate_batch``, then 10 single-op writes are timed to their arrival
-    at the last replica, 1% of the keys are removed, and every replica
-    reads 4096 keys. The probe kernel runs the feeds' winner passes and
+    ``mutate_batch``, then ``TREE_HASH_PROPS`` single-op writes are timed
+    to their arrival at the last replica, 1% of the keys are removed, and
+    every replica reads 4096 keys. The probe kernel runs the feeds' winner passes and
     the reads; it is held bit-equal on a tier-1 relay's own table."""
     import gc
 
@@ -3667,20 +3991,20 @@ def tree_hash(n: int, n_keys: int, device_name: str, device: str = "cuda", fanou
             f"{n} replicas after {out['converge_s']:.3f} s")
 
         lat = []
-        for k in range(10):
+        for k in range(TREE_HASH_PROPS):
             t1 = time.perf_counter()
             dc.mutate(writer, "add", [f"prop{k}", k])
             for i, lg in enumerate(logs):
                 lg.wait(lambda d: d.view.get(f"prop{k}") == k, deadline, f"11b: prop{k} on {reps[i].name}")
             lat.append(max(lg.seen_at[f"prop{k}"] for lg in logs) - t1)
         out["propagation_ms"] = [x * 1e3 for x in lat]
-        log(f"[tree] 11b: 10 single-op writes to their arrival at the last replica (ms): "
+        log(f"[tree] 11b: {TREE_HASH_PROPS} single-op writes to their arrival at the last replica (ms): "
             f"{[round(x * 1e3, 3) for x in lat]} median {float(np.median(lat)) * 1e3:.3f}")
 
         removed = [f"key{i}" for i in range(0, n_keys, 100)]
         t1 = time.perf_counter()
         dc.mutate_batch(writer, "remove", [[k] for k in removed], timeout=SLICE_BUDGET_S)
-        left = n_keys + 10 - len(removed)
+        left = n_keys + TREE_HASH_PROPS - len(removed)
         for i, lg in enumerate(logs):
             lg.wait(lambda d: len(d.view) == left and all(k not in d.view for k in removed[-8:]), deadline,
                     f"11b: removes on {reps[i].name}")
@@ -3700,7 +4024,8 @@ def tree_hash(n: int, n_keys: int, device_name: str, device: str = "cuda", fanou
             if time.perf_counter() > deadline:
                 raise AssertionError("11b: the replicas did not converge to equal canonical bytes")
             time.sleep(0.1)
-        written = {f"key{i}": i for i in range(n_keys) if i % 100 != 0} | {f"prop{k}": k for k in range(10)}
+        written = {f"key{i}": i for i in range(n_keys) if i % 100 != 0}
+        written |= {f"prop{k}": k for k in range(TREE_HASH_PROPS)}
         for r, lg in zip(reps, logs):
             if lg.view != written:
                 raise AssertionError(f"11b: {r.name}'s diff feed differs from the written map")
@@ -3732,8 +4057,8 @@ def tree_hash(n: int, n_keys: int, device_name: str, device: str = "cuda", fanou
         # launches below compare the kernel with its plain version on a
         # tier-1 relay's own table and are not the path's
         qs = sorted({int(k.split("x")[2]) for k in out["probe_by_shape"]})
-        out["table_max_abs_err"] = check_main_tables([relay], n_keys, removed, [f"prop{k}" for k in range(10)],
-                                                     q_sizes=qs)
+        props = [f"prop{k}" for k in range(TREE_HASH_PROPS)]
+        out["table_max_abs_err"] = check_main_tables([relay], n_keys, removed, props, q_sizes=qs)
         out["leg_s"] = time.perf_counter() - t_leg
         return out
     finally:
@@ -3893,8 +4218,16 @@ def main() -> int:
             b = phase_binned(args.keys, name_power, serve=serve_b)
             log("[serve-metrics] " + json.dumps({"10a": b.pop("serve"), "10b": m.pop("serve"),
                                                  "10c": serve_fleet(name_power)}))
+        if "3b" in args.only:
+            log("[binned-metrics] " + json.dumps(phase_binned(args.keys, name_power)))
         if "4" in args.only:
             phase_cuda_vs_cpu()
+        if "5" in args.only:
+            f = phase_fanin(name_power)
+            fp = phase_fanin_packed(name_power, f.pop("prior"))
+            f.pop("base")
+            log("[fanin-metrics] " + json.dumps(f))
+            log("[fanin-packed-metrics] " + json.dumps(fp))
         if "7" in args.only:
             reserve = (DURABILITY_RESERVE_S if "8" in args.only else 0.0) + (
                 TCP_RESERVE_S if "9" in args.only else 0.0) + (TREE_RESERVE_S if "11" in args.only else 0.0)
@@ -3936,9 +4269,20 @@ def main() -> int:
     phase_t["4"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     f = phase_fanin(name_power)
+    phase_t["5"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    fp = phase_fanin_packed(name_power, f.pop("prior"))
+    phase_t["5p"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     g = phase_ring_gossip(f.pop("base"))
-    phase_t["5-6"] = time.perf_counter() - t_phase
+    phase_t["6"] = time.perf_counter() - t_phase
     log("[fanin-metrics] " + json.dumps(f))
+    log("[fanin-packed-metrics] " + json.dumps(fp))
+    log(f"[fanin-layouts] merges/s columns {f['merges_per_sec']:.3f}, packed_scomp "
+        f"{fp['packed_scomp']['merges_per_sec']:.3f}, packed_topk {fp['packed_topk']['merges_per_sec']:.3f}; "
+        f"entry stack bytes {f['stack_bytes']} against {fp['packed_scomp']['stack_bytes']}; peak memory "
+        f"{f['peak_mem_bytes']}, {fp['packed_scomp']['peak_mem_bytes']}, {fp['packed_topk']['peak_mem_bytes']} B "
+        f"on {name_power}")
     log("[gossip-metrics] " + json.dumps(g))
     t_phase = time.perf_counter()
     fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S + TREE_RESERVE_S)
@@ -3995,14 +4339,16 @@ def main() -> int:
     probe["shapes"] += path_probe_rows(name_power, by_shape, head_keys)
     if sum(row["launches"] for row in probe["shapes"]) != sum(by_shape.values()):
         raise AssertionError(f"probe launches by shape {by_shape} are not all in the timed rows")
-    roots["launches"] = f["launches"]  # the fan-in's, as in earlier lines
-    roots["launches_by_path"] = {"fanin": f["launches"], "gossip": g["launches"],
+    fanin_runs = [f, fp["packed_scomp"], fp["packed_topk"]]
+    roots["launches"] = sum(x["launches"] for x in fanin_runs)  # the fan-in's, every layout
+    roots["launches_by_path"] = {"fanin": f["launches"], "fanin_packed_scomp": fp["packed_scomp"]["launches"],
+                                 "fanin_packed_topk": fp["packed_topk"]["launches"], "gossip": g["launches"],
                                  "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0,
                                  "serve": 0, "tree": tr["11a"]["launches"][batched_roots_kernel.name]}
-    roots["max_abs_err"] = max(roots["max_abs_err"], f["roots_max_abs_err"])
+    roots["max_abs_err"] = max([roots["max_abs_err"]] + [x["roots_max_abs_err"] for x in fanin_runs])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"
-        row["launches"] = f["launches_by_shape"].get(k, 0) + g["launches_by_shape"].get(k, 0)
+        row["launches"] = sum(x["launches_by_shape"].get(k, 0) for x in fanin_runs + [g])
     for kern in (probe, roots):
         loss = [(row["shape"], row["launches"], row["launches"] * (row["kernel_ms"] - row["bound_ms"]))
                 for row in kern["shapes"]]

@@ -27,7 +27,10 @@ front door (``frontdoor(crdt)``: lock-free snapshot reads that launch
 the probe kernel on the hash store, coalesced write admission with
 shedding) and the observability plane (``obs=``: metrics, the flight
 recorder, the lag tracer, ``/metrics`` ``/healthz`` ``/varz``, profiler
-spans). See ``ROADMAP.md`` for what comes next.
+spans); and tree gossip; and the packed entry layout on the fan-in
+(``parallel.pack_states`` → ``fanout_merge_into``, ``ops/packed.py``) and
+the native batch hasher (``native/``). See ``ROADMAP.md`` for what
+comes next.
 """
 
 from delta_crdt_ex_tpu_torch.api import (

@@ -7,7 +7,10 @@
   and the LWW winner cores;
 - the bulk fan-in path's store ops: :func:`merge_slice` (the
   element-scatter merge, both its uncompacted and its ``top_k``
-  compacted branch), :func:`merge_rows` and :func:`extract_rows` (the
+  compacted branch, built from the insert and kill steps it shares with
+  the packed layout's merge in :mod:`delta_crdt_ex_tpu_torch.ops.packed`:
+  :func:`_insert_grid`, :func:`_insert_aux`, :func:`_kill_rows`,
+  :func:`_kill_apply`), :func:`merge_rows` and :func:`extract_rows` (the
   row-granular pair ring gossip and the replica's ingress use),
   :func:`compact_rows`, :func:`init_from_columns` and
   :func:`flagged_first_order`;
@@ -905,11 +908,123 @@ class MergeResult(NamedTuple):
     n_killed: torch.Tensor  # int64
 
 
+class InsertGrid(NamedTuple):
+    """Where each slice entry of every lane goes (``ops/binned.py:577``):
+    the insert preamble both entry layouts share."""
+
+    n_ins_row: torch.Tensor  # int64[N, U]
+    need_fill_compact: torch.Tensor  # bool[N]
+    real: torch.Tensor  # bool[N, U, S]: inserted at a slot below B
+    flat: torch.Tensor  # int64[N, U·S] flat slot, or L·B + grid position
+
+
+def _insert_grid(fill: torch.Tensor, v: SliceView, B: int) -> InsertGrid:
+    """Each insert's target slot is its row's ``fill`` plus its rank in
+    the row. Overflowing rows (pos >= B) must not clip into valid slots;
+    padding positions are distinct out-of-range values (L·B + grid
+    position), so a compacted order has no ties."""
+    n, L = fill.shape
+    u, s = v.ins.shape[-2:]
+    ins_rank = torch.cumsum(v.ins.to(_LONG), -1) - 1
+    n_ins_row = v.ins.sum(-1)
+    fill_rows = fill[_lanes(n, fill.device), v.rows_clip].to(_LONG)
+    need_fill_compact = (v.valid & (fill_rows + n_ins_row > B)).any(-1)
+    pos = fill_rows[..., None] + ins_rank  # [N, U, S] target bin slot
+    real = v.ins & (pos < B)
+    pad_idx = L * B + torch.arange(u * s, device=fill.device).reshape(u, s)
+    flat = torch.where(real, v.rows_clip[..., None] * B + pos.clamp(0, B - 1), pad_idx)
+    return InsertGrid(n_ins_row, need_fill_compact, real, flat.reshape(n, u * s))
+
+
+def _insert_aux(state, sl: RowSlice, v: SliceView, g: InsertGrid, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts):
+    """The summary tables after the inserts, as ``_ext`` copies
+    ``(fill, amin, amax, leaf, ctx_max)``: fill counts, min/max alive
+    counter per (row, writer slot), the leaf digests as int64 sums
+    masked once at the end (the kill pass adds its negated dead hashes
+    first), and the context union, one order-free scatter for all the
+    slice's writer columns."""
+    n, L, R = state.amin.shape
+    rows_safe = v.rows_safe
+    fill_e = _ext(state.fill)
+    fill_e.scatter_add_(1, rows_safe, g.n_ins_row.to(torch.int32))
+    ridx = torch.where(rows_c < L, rows_c * R + ln_c, L * R)
+    amin_e = _ext(state.amin)
+    amin_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, U32_MAX), "amin")
+    amax_e = _ext(state.amax)
+    amax_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, 0), "amax")
+    leaf_e = _ext(state.leaf)
+    if max_inserts is None:
+        leaf_add = torch.where(g.real, eh_c.reshape(g.real.shape), 0).sum(-1)
+        leaf_e.scatter_add_(1, rows_safe, leaf_add)
+    else:
+        leaf_e.scatter_add_(1, torch.where(rows_c < L, rows_c, L), torch.where(ins_c, eh_c, 0))
+    colr = torch.where(v.gids.remap >= 0, v.gids.remap, R)[:, None, :]  # [N, 1, Rr]
+    cidx = torch.where((rows_safe[..., None] < L) & (colr < R), rows_safe[..., None] * R + colr, L * R)
+    ctx_e = _ext(state.ctx_max)
+    ctx_e.scatter_reduce_(
+        1, cidx.reshape(n, -1), torch.where(v.nonempty, sl.ctx_rows, 0).reshape(n, -1), "amax"
+    )
+    return fill_e, amin_e, amax_e, leaf_e, ctx_e
+
+
+class KillRows(NamedTuple):
+    """The rows the kill pass visits (``ops/binned.py:684``)."""
+
+    need_kill_tier: torch.Tensor  # bool[N]
+    order: torch.Tensor  # int64[N, KB] slice rows, flagged first
+    k_valid: torch.Tensor  # bool[N, KB]
+    k_rows: torch.Tensor  # int64[N, KB] bucket rows (L where not flagged)
+    k_rows_clip: torch.Tensor  # int64[N, KB]
+
+
+def _kill_rows(state, v: SliceView, kill_budget: int) -> KillRows:
+    """The kill pass is pruned by amin/amax: the interval (lo, hi] can
+    only kill a local dot if it overlaps the [amin, amax] alive-counter
+    span of some (bucket, writer), on the PRE-merge state."""
+    n, L, _ = state.amin.shape
+    lanes = _lanes(n, state.amin.device)
+    amin_rows = state.amin[lanes, v.rows_clip]
+    amax_rows = state.amax[lanes, v.rows_clip]
+    flagged = v.valid & ((v.rdense >= amin_rows) & (v.ldense < amax_rows)).any(-1)
+    order = flagged_first_order(flagged, kill_budget)  # [N, KB]
+    k_valid = torch.gather(flagged, 1, order)
+    k_rows = torch.where(k_valid, torch.gather(v.rows_clip, 1, order), L)
+    return KillRows(flagged.sum(-1) > kill_budget, order, k_valid, k_rows, k_rows.clamp(0, L - 1))
+
+
+def _kill_apply(kr: KillRows, sl: RowSlice, v: SliceView, l_node, l_ctr, l_alive, l_ehash, leaf_e, amin_e, amax_e):
+    """Kill ((s1∩s2) ∪ (s1∖c2)) the local dots of the flagged rows, read
+    through the post-insert table (inserted entries carry fresh remote
+    dots present in the slice, so they survive their own coverage
+    test): a dot dies iff the interval covers it and the slice does not
+    carry it. Subtracts the dead hashes from the leaf digests and resets
+    the rows' amin/amax (in place on the ``_ext`` copies); returns
+    ``(die, surv)``."""
+    n, kb = kr.order.shape
+    R = v.rdense.shape[-1]
+    L = (amin_e.shape[1] - 1) // R
+    lanes = _lanes(n, l_node.device)
+    k_rdense = v.rdense[lanes, kr.order]  # [N, KB, R]
+    k_ldense = v.ldense[lanes, kr.order]
+    covered = (torch.gather(k_rdense, -1, l_node) >= l_ctr) & (torch.gather(k_ldense, -1, l_node) < l_ctr)
+    r_alive = sl.alive[lanes, kr.order] & kr.k_valid[..., None]
+    r_dot = torch.where(r_alive, encode_dot(v.ln_clip[lanes, kr.order], sl.ctr[lanes, kr.order]), 0)
+    present = (encode_dot(l_node, l_ctr)[..., :, None] == r_dot[..., None, :]).any(-1)
+    die = l_alive & covered & ~present
+    surv = l_alive & ~die
+    leaf_e.scatter_add_(1, torch.where(kr.k_valid, kr.k_rows, L), -torch.where(die, l_ehash, 0).sum(-1))
+    kidx = torch.where(
+        kr.k_valid[..., None], kr.k_rows[..., None] * R + torch.arange(R, device=l_node.device), L * R
+    ).reshape(n, -1)
+    amin_e.scatter_(1, kidx, _row_amin(l_node, l_ctr, surv, R).reshape(n, -1))
+    amax_e.scatter_(1, kidx, _row_amax(l_node, l_ctr, surv, R).reshape(n, -1))
+    return die, surv
+
+
 def _merge_slice_b(
     state: BinnedStore, sl: RowSlice, kill_budget: int, max_inserts: int | None
 ) -> MergeResult:
     n, L, B = state.key.shape
-    R = state.replica_capacity
     u, s = sl.key.shape[-2:]
     rr = sl.ctx_gid.shape[-1]
     dev = state.device
@@ -917,33 +1032,20 @@ def _merge_slice_b(
     LB = L * B
 
     v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
-    valid, rows_safe, rows_clip, ins = v.valid, v.rows_safe, v.rows_clip, v.ins
+    g = _insert_grid(state.fill, v, B)
+    n_inserted = v.ins.sum((-2, -1))
 
     # --- insert pass (s2 ∖ c1): element scatters at fill positions
-    ins_rank = torch.cumsum(ins.to(_LONG), -1) - 1
-    n_ins_row = ins.sum(-1)
-    fill_rows = state.fill[lanes, rows_clip].to(_LONG)
-    need_fill_compact = (valid & (fill_rows + n_ins_row > B)).any(-1)
-    pos = fill_rows[..., None] + ins_rank  # [N, U, S] target bin slot
-    # overflowing rows (pos >= B) must not clip into valid slots; padding
-    # positions are distinct out-of-range values (L*B + position), so
-    # the compacted order below has no ties
-    real = ins & (pos < B)
-    pad_idx = LB + torch.arange(u * s, device=dev).reshape(u, s)
-    flat = torch.where(real, rows_clip[..., None] * B + pos.clamp(0, B - 1), pad_idx)
-    flat = flat.reshape(n, u * s)
-    n_inserted = ins.sum((-2, -1))
-
     if max_inserts is None:
         need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
-        flat_c = flat
+        flat_c = g.flat
         take = lambda a: a.reshape(n, u * s)
     else:
         # the k smallest flat indices in ascending order: the real insert
         # positions first, padding last (jax.lax.top_k of -flat; flat is
         # duplicate-free, so the positions are JAX's)
         k = min(max_inserts, u * s)
-        flat_c, sel = torch.topk(flat, k, dim=-1, largest=False, sorted=True)
+        flat_c, sel = torch.topk(g.flat, k, dim=-1, largest=False, sorted=True)
         need_ins_tier = n_inserted > k
         take = lambda a: torch.gather(a.reshape(n, u * s), 1, sel)
 
@@ -963,72 +1065,23 @@ def _merge_slice_b(
     key_e, valh_e, ts_e = put(state.key, key_c), put(state.valh, valh_c), put(state.ts, ts_c)
     node_e, ctr_e, ehash_e = put(state.node, ln_c), put(state.ctr, ctr_c), put(state.ehash, eh_c)
     alive_e = put(state.alive, ins_c)
-    fill_e = _ext(state.fill)
-    fill_e.scatter_add_(1, rows_safe, n_ins_row.to(torch.int32))
-    ridx = torch.where(rows_c < L, rows_c * R + ln_c, L * R)
-    amin_e = _ext(state.amin)
-    amin_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, U32_MAX), "amin")
-    amax_e = _ext(state.amax)
-    amax_e.scatter_reduce_(1, ridx, torch.where(ins_c, ctr_c, 0), "amax")
-    # leaf digests as wrapping uint32 sums: int64 adds here, one mask at
-    # the end (the kill pass adds its negated dead hashes before it)
-    leaf_e = _ext(state.leaf)
-    if max_inserts is None:
-        leaf_add = torch.where(real, eh_c.reshape(n, u, s), 0).sum(-1)
-        leaf_e.scatter_add_(1, rows_safe, leaf_add)
-    else:
-        leaf_e.scatter_add_(1, torch.where(rows_c < L, rows_c, L), torch.where(ins_c, eh_c, 0))
-    # context union: max per (row, local writer slot), one order-free
-    # scatter for all the slice's writer columns
-    colr = torch.where(v.gids.remap >= 0, v.gids.remap, R)[:, None, :]  # [N, 1, Rr]
-    cidx = torch.where((rows_safe[..., None] < L) & (colr < R), rows_safe[..., None] * R + colr, L * R)
-    ctx_e = _ext(state.ctx_max)
-    ctx_e.scatter_reduce_(
-        1, cidx.reshape(n, -1), torch.where(v.nonempty, sl.ctx_rows, 0).reshape(n, -1), "amax"
+    fill_e, amin_e, amax_e, leaf_e, ctx_e = _insert_aux(
+        state, sl, v, g, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts
     )
 
-    # --- kill pass ((s1∩s2) ∪ (s1∖c2)), pruned by amin/amax: the
-    # interval (lo, hi] can only kill a local dot if it overlaps the
-    # [amin, amax] alive-counter span of some (bucket, writer), on the
-    # PRE-merge state
-    amin_rows = state.amin[lanes, rows_clip]
-    amax_rows = state.amax[lanes, rows_clip]
-    flagged = valid & ((v.rdense >= amin_rows) & (v.ldense < amax_rows)).any(-1)
-    need_kill_tier = flagged.sum(-1) > kill_budget
-    order = flagged_first_order(flagged, kill_budget)  # [N, KB]
-    k_valid = torch.gather(flagged, 1, order)
-    k_rows = torch.where(k_valid, torch.gather(rows_clip, 1, order), L)
-    k_rows_clip = k_rows.clamp(0, L - 1)
-
-    # local dots of the flagged rows, read through the post-insert
-    # columns: inserted entries carry fresh remote dots present in the
-    # slice, so they survive their own coverage test
+    # --- kill pass ((s1∩s2) ∪ (s1∖c2)) on the flagged rows
+    kr = _kill_rows(state, v, kill_budget)
     shape = state.key.shape
     node2, ctr2 = _unext(node_e, shape), _unext(ctr_e, shape)
-    l_node = node2[lanes, k_rows_clip].to(_LONG)  # [N, KB, B]
-    l_ctr = ctr2[lanes, k_rows_clip]
-    l_alive = _unext(alive_e, shape)[lanes, k_rows_clip] & k_valid[..., None]
-    l_ehash = _unext(ehash_e, shape)[lanes, k_rows_clip]
-    k_rdense = v.rdense[lanes, order]  # [N, KB, R]
-    k_ldense = v.ldense[lanes, order]
-    covered = (torch.gather(k_rdense, -1, l_node) >= l_ctr) & (
-        torch.gather(k_ldense, -1, l_node) < l_ctr
-    )
-    r_alive = sl.alive[lanes, order] & k_valid[..., None]
-    r_dot = torch.where(r_alive, encode_dot(v.ln_clip[lanes, order], sl.ctr[lanes, order]), 0)
-    present = (encode_dot(l_node, l_ctr)[..., :, None] == r_dot[..., None, :]).any(-1)
-    die = l_alive & covered & ~present
-    surv = l_alive & ~die
-
-    kidx = torch.where(k_valid[..., None], k_rows[..., None] * B + torch.arange(B, device=dev), LB)
+    l_node = node2[lanes, kr.k_rows_clip].to(_LONG)  # [N, KB, B]
+    l_ctr = ctr2[lanes, kr.k_rows_clip]
+    l_alive = _unext(alive_e, shape)[lanes, kr.k_rows_clip] & kr.k_valid[..., None]
+    l_ehash = _unext(ehash_e, shape)[lanes, kr.k_rows_clip]
+    die, surv = _kill_apply(kr, sl, v, l_node, l_ctr, l_alive, l_ehash, leaf_e, amin_e, amax_e)
+    kidx = torch.where(kr.k_valid[..., None], kr.k_rows[..., None] * B + torch.arange(B, device=dev), LB)
     alive_e.scatter_(1, kidx.reshape(n, -1), surv.reshape(n, -1))
-    k_row_or_drop = torch.where(k_valid, k_rows, L)
-    leaf_e.scatter_add_(1, k_row_or_drop, -torch.where(die, l_ehash, 0).sum(-1))
-    kr = torch.where(k_valid[..., None], k_rows[..., None] * R + torch.arange(R, device=dev), L * R)
-    amin_e.scatter_(1, kr.reshape(n, -1), _row_amin(l_node, l_ctr, surv, R).reshape(n, -1))
-    amax_e.scatter_(1, kr.reshape(n, -1), _row_amax(l_node, l_ctr, surv, R).reshape(n, -1))
 
-    ok = ~(v.gids.overflow | need_kill_tier | need_fill_compact | v.need_ctx_gap | need_ins_tier)
+    ok = ~(v.gids.overflow | kr.need_kill_tier | g.need_fill_compact | v.need_ctx_gap | need_ins_tier)
     small = lambda e, like: _unext(e, like.shape, contiguous=True)
     new_state = BinnedStore(
         key=_unext(key_e, shape),
@@ -1046,7 +1099,7 @@ def _merge_slice_b(
         ctx_max=small(ctx_e, state.ctx_max),
     )
     return MergeResult(
-        new_state, ok, v.gids.overflow, need_kill_tier, need_fill_compact,
+        new_state, ok, v.gids.overflow, kr.need_kill_tier, g.need_fill_compact,
         v.need_ctx_gap, need_ins_tier, n_inserted, die.sum((-2, -1)),
     )
 

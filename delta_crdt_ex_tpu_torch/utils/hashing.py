@@ -91,22 +91,38 @@ def value_hash32(term) -> int:
 
 
 def key_hash64_batch(terms: list):
-    """uint64 key ids for a term batch (per-term hashlib BLAKE2b — the
-    JAX package's native batch hasher is pinned bit-identical to this
-    path by ``tests/test_native.py`` and is not ported yet)."""
-    import numpy as np
+    """uint64 key ids for a term batch, hashed in one call of the native
+    batch hasher (:mod:`delta_crdt_ex_tpu_torch.native`; the JAX
+    package's ``key_hash64_batch``), bit for bit
+    :func:`key_hash64_batch_ref`."""
+    from delta_crdt_ex_tpu_torch import native
 
-    out = np.empty(len(terms), np.uint64)
-    for i, t in enumerate(terms):
-        out[i] = int.from_bytes(blake2b(canonical_bytes(t), digest_size=8).digest(), "big") or 1
-    return out
+    return native.hash64_batch([canonical_bytes(t) for t in terms])
 
 
 def value_hash32_batch(terms: list):
     """uint32 value digests for a term batch (see key_hash64_batch)."""
+    from delta_crdt_ex_tpu_torch import native
+
+    return native.hash32_batch([canonical_bytes(t) for t in terms])
+
+
+def key_hash64_batch_ref(terms: list):
+    """The plain version of :func:`key_hash64_batch`: per-term
+    :mod:`hashlib` BLAKE2b, the path the native hasher is held against."""
+    import numpy as np
+
+    out = np.empty(len(terms), np.uint64)
+    for i, t in enumerate(terms):
+        out[i] = key_hash64(t)
+    return out
+
+
+def value_hash32_batch_ref(terms: list):
+    """The plain version of :func:`value_hash32_batch`."""
     import numpy as np
 
     out = np.empty(len(terms), np.uint32)
     for i, t in enumerate(terms):
-        out[i] = int.from_bytes(blake2b(canonical_bytes(t), digest_size=4).digest(), "big")
+        out[i] = value_hash32(t)
     return out

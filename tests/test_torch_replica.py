@@ -156,6 +156,8 @@ def test_port_imports_no_jax():
         "import delta_crdt_ex_tpu_torch.runtime.serve, delta_crdt_ex_tpu_torch.runtime.metrics\n"
         "import delta_crdt_ex_tpu_torch.runtime.obs_server, delta_crdt_ex_tpu_torch.runtime.tracing\n"
         "import delta_crdt_ex_tpu_torch.runtime.treesync\n"
+        "import delta_crdt_ex_tpu_torch.ops.packed, delta_crdt_ex_tpu_torch.native, delta_crdt_ex_tpu_torch.parallel\n"
+        "from delta_crdt_ex_tpu_torch.parallel import fanout_merge_packed, pack_states\n"
         "from delta_crdt_ex_tpu_torch import Frontdoor, FleetFrontdoor, Observability, ObsServer, Overloaded, frontdoor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
