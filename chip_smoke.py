@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-11
+    python3 chip_smoke.py                 # the full run: phases 1-12
     python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a, 9b, 10a and 10b at a cut key count
     python3 chip_smoke.py --only 3b       # the build and phase 3b alone (no result lines)
     python3 chip_smoke.py --only 45       # the build, phase 4 and phases 5 and 5p (no result lines)
@@ -11,6 +11,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --only 9        # the build and phase 9 alone (no result lines)
     python3 chip_smoke.py --only 10       # the build, phases 3 and 3b (the pairs phase 10 serves from) and phase 10
     python3 chip_smoke.py --only 11       # the build and phase 11 alone (no result lines)
+    python3 chip_smoke.py --only 12       # the build and phase 12 alone (no result lines)
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -255,6 +256,28 @@ Phases (each raises on failure; any failure exits nonzero):
    of each (its captain) linked to the other endpoint, writes on both
    fleets converged to equal canonical bytes on all 128; the wire from
    endpoint A prints beside 9c's flat figures.
+12. the multi-device mesh, run right after phase 6 (it reuses the
+   fan-in's base). 12a, ``bench.py --fleet --mesh``'s topology at its
+   widths (64 members in one mesh fleet, member i gossiping with i + 32,
+   a sink each, 4 fresh keys a member a round, depth 6; 3 timed rounds,
+   the bench's 4 cut for time) on meshes of 1, 2, 4 and 8 shards, every
+   shard on ``cuda:0``, binned, and at 8 shards on the hash store, each
+   against a vmap fleet fed the same script: member-syncs/s and merges/s
+   of both; every sink stream, state column, canonical byte, seq and
+   in-flight slot equal; the plane's intra entries above 0 and its only
+   fallback entries the sinks'. After the hash leg, ``read_keys`` on
+   every member launches the probe kernel, held bit-equal to its plain
+   version on every member's table. 12b, phase 7a's ingress leg at
+   N = 256 on a 4-shard mesh fleet against solo twins (1 timed round, 7a's 3
+   cut for time). 12c, ``gossip_delta_drive`` on 8 shards at phase 6's
+   geometry (8 replicas from the fan-in's 1,000,000-key base, 2^14
+   buckets, 4096 fresh entries each, the frontier the whole tree) until
+   ``n_diff`` is 0: every root and every replica's content equal. 12d, a
+   pair pinned to ``cuda:0`` converging 2^16 keys on the device plane
+   (``replica.slice_place`` counted, every merge labelled ``device``)
+   beside a pair on a bare ``"cuda"`` on the host plane. 12e, 12a at 2
+   shards on ``cuda:0`` and ``cuda:1`` when the host has two cards;
+   otherwise one line says only one card was present.
 
 Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
@@ -707,7 +730,7 @@ class DiffLog:
             time.sleep(0.005)
 
 
-def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_sizes=()) -> int:
+def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_sizes=(), quiet: bool = False) -> int:
     """The probe kernel against ``probe_lookup_ref`` on each replica's
     own final table (``reps`` holds replicas, or ``(name, state)``
     pairs for tables held elsewhere, such as a pinned snapshot's):
@@ -758,6 +781,8 @@ def check_main_tables(reps, n_keys: int, removed: list, extra: list = (), q_size
             found = int(want[: len(terms), 0].sum()), int(want[len(terms):, 0].sum())
             if found != (len(terms) - len(removed), 0):
                 raise AssertionError(f"{name}: probe grid found {found}, want ({len(terms) - len(removed)}, 0)")
+        if quiet:
+            continue
         log(f"[slice] {name}: kernel vs plain on the main path's table (H={st.table_size} "
             f"W={st.probe_window}) at Q={[len(h) for h in grids]}: bit-equal, the first grid found "
             f"{found[0]} written + {found[1]} missing, max_abs_err 0")
@@ -1806,26 +1831,41 @@ def canonical_lanes(stack) -> list:
     return out
 
 
-def phase_ring_gossip(base) -> dict:
-    import torch
+#: phase 6's gossip geometry: lanes grown from the fan-in's base, fresh
+#: entries a lane
+GOSSIP_LANES = 8
+GOSSIP_FRESH = 4096
 
+
+def gossip_lanes(base, device: str = "cuda") -> list:
+    """Phase 6's (and 12c's) replicas: the fan-in's base state, grown to
+    16 writer slots, each lane joined with 4096 fresh entries of its own
+    writer (seed 6)."""
     from delta_crdt_ex_tpu_torch.models.binned_map import merge_into
-    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
-    from delta_crdt_ex_tpu_torch.parallel.batched_sync import ring_gossip_round, stack_states
     from delta_crdt_ex_tpu_torch.utils.synth import interval_delta_stream
 
-    n, fresh = 8, 4096
     L = base.num_buckets
     rng = np.random.default_rng(6)
     base = base.grow(replica_capacity=16)  # the base writer + 8 lane writers
     lanes = []
-    for i in range(n):
-        (sl,), _ = interval_delta_stream(100 + i, rng, 1, fresh, L, bin_width=8, device="cuda")
-        lane, res = merge_into(base, sl, n_alive=fresh)
-        if int(res.n_inserted) != fresh:
-            raise AssertionError(f"lane {i}: merge_into inserted {int(res.n_inserted)}, want {fresh}")
+    for i in range(GOSSIP_LANES):
+        (sl,), _ = interval_delta_stream(100 + i, rng, 1, GOSSIP_FRESH, L, bin_width=8, device=device)
+        lane, res = merge_into(base, sl, n_alive=GOSSIP_FRESH)
+        if int(res.n_inserted) != GOSSIP_FRESH:
+            raise AssertionError(f"lane {i}: merge_into inserted {int(res.n_inserted)}, want {GOSSIP_FRESH}")
         lanes.append(lane)
-    stack = stack_states(lanes)
+    return lanes
+
+
+def phase_ring_gossip(base) -> dict:
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
+    from delta_crdt_ex_tpu_torch.parallel.batched_sync import ring_gossip_round, stack_states
+
+    n, fresh = GOSSIP_LANES, GOSSIP_FRESH
+    L = base.num_buckets
+    stack = stack_states(gossip_lanes(base))
     torch.cuda.synchronize()
     batched_roots_kernel.reset()  # the gossip path's run starts here
     t0 = time.perf_counter()
@@ -1871,11 +1911,12 @@ class _Sink:
     and monitors succeed, it handles nothing."""
 
 
-def fleet_universe(n: int, store, device: str, tag: str, egress: bool):
+def fleet_universe(n: int, store, device: str, tag: str, egress: bool, mesh=None):
     """``bench.py``'s fleet topology on ``device``: n fleet members and n
     solo twins with pairwise-equal node ids (``LogicalClock``); the
     ingress leg adds n senders, each pushing to its member and its twin,
-    the egress leg a sink neighbour for every member and twin."""
+    the egress leg a sink neighbour for every member and twin. ``mesh``
+    makes the fleet a mesh fleet (phase 12b)."""
     import gc
 
     import delta_crdt_ex_tpu_torch as dc
@@ -1904,7 +1945,7 @@ def fleet_universe(n: int, store, device: str, tag: str, egress: bool):
         senders = [mk(name=f"{tag}_s{i}") for i in range(n)]
         for i, s in enumerate(senders):
             s.set_neighbours([members[i], solos[i]])
-    return t, dc.Fleet(members), solos, senders
+    return t, dc.Fleet(members, mesh=mesh), solos, senders
 
 
 def state_nbytes(state) -> int:
@@ -1912,6 +1953,8 @@ def state_nbytes(state) -> int:
 
     import torch
 
+    if hasattr(state, "blocks"):  # a mesh fleet's block-split stack
+        return sum(state_nbytes(b) for b in state.blocks)
     return sum(v.numel() * v.element_size() for f in dataclasses.fields(state)
                if isinstance(v := getattr(state, f.name), torch.Tensor))
 
@@ -1964,7 +2007,7 @@ def _entries_to(transport, addr) -> int:
     return len(msgs)
 
 
-def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict:
+def fleet_ingress(n: int, store, device_name: str, device: str = "cuda", mesh=None, rounds: int = 0) -> dict:
     """``bench.py --fleet``'s ingress leg: n senders push delta-interval
     EntriesMsgs to one fleet member and one solo twin each (walk
     back-traffic filtered out); a round times ``fleet.drain()`` against
@@ -1978,9 +2021,11 @@ def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict
 
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    leg = f"ingress {store or 'binned'} N={n}"
+    rounds = rounds or FLEET_ROUNDS
+    leg = f"ingress {store or 'binned'} N={n}" + (f" mesh shards={mesh.shards}" if mesh is not None else "")
     t0 = time.perf_counter()
-    t, fleet, solos, senders = fleet_universe(n, store, device, f"fi{store or 'b'}{n}", egress=False)
+    tag = f"fi{store or 'b'}{n}" + (f"m{mesh.shards}" if mesh is not None else "")
+    t, fleet, solos, senders = fleet_universe(n, store, device, tag, egress=False, mesh=mesh)
     setup_s = time.perf_counter() - t0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -1988,7 +2033,7 @@ def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict
     dts: dict = {"fleet": [], "solo": []}
     disp: list = []
     trace = None
-    for rnd in range(FLEET_ROUNDS + 2):  # round 0 warms up; the last one is traced
+    for rnd in range(rounds + 2):  # round 0 warms up; the last one is traced
         base = 1_000_003 * rnd
         for i, s in enumerate(senders):
             s.mutate_batch("add", [[base + i * 1000 + j, base + i * 1000 + j] for j in range(FLEET_KEYS_PER_ROUND)])
@@ -1998,7 +2043,7 @@ def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict
             if _entries_to(t, r.addr) < 1:
                 raise AssertionError(f"{leg}: member {r.name} got no entries")
         d0 = fleet.stats()["dispatches"]
-        if rnd == FLEET_ROUNDS + 1:
+        if rnd == rounds + 1:
             if cuda:
                 trace = trace_call(fleet.drain)
             else:
@@ -2018,7 +2063,7 @@ def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict
         for r in solos:
             r.process_pending()
         sync()
-        if 0 < rnd <= FLEET_ROUNDS:
+        if 0 < rnd <= rounds:
             dts["solo"].append(time.perf_counter() - t1)
         for s in senders:
             t.drain(s.addr)  # walk back-traffic: not measured
@@ -2052,7 +2097,7 @@ def fleet_ingress(n: int, store, device_name: str, device: str = "cuda") -> dict
     if trace is not None:
         m["trace"] = trace
     log(f"[fleet] {leg}: fleet {m['fleet_merges_per_sec']:.3f} vs solo {m['solo_merges_per_sec']:.3f} merges/s "
-        f"(median of {FLEET_ROUNDS} rounds; speedup {m['speedup']:.3f}); fleet round ms "
+        f"(median of {rounds} rounds; speedup {m['speedup']:.3f}); fleet round ms "
         f"{[round(x, 3) for x in m['fleet_round_ms']]}, solo round ms {[round(x, 3) for x in m['solo_round_ms']]}; "
         f"dispatches per round {disp}; avg occupancy {st['avg_occupancy']}, ragged fill {st['ragged_fill_ratio']}, "
         f"fallbacks {st['fallbacks']}, stack cache {st['stack_cache']}; peak memory {m['peak_mem_bytes']} B; "
@@ -4177,6 +4222,398 @@ def phase_tree(device_name: str, device: str = "cuda", flat_wire: "dict | None" 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device mesh
+
+#: 12a: ``bench.py --fleet --mesh``'s topology (``bench.py:2183``) at its
+#: full widths: 64 members paired i <-> i+32, 4 fresh keys a member a
+#: round, depth 6, one sink a member; 3 timed rounds after one warm-up
+#: (the bench's 4, cut so that the phase fits the run's time)
+MESH_N = 64
+MESH_ROUNDS = 3
+MESH_KEYS = 4
+MESH_DEPTH = 6
+MESH_SHARDS = (1, 2, 4, 8)
+#: 12b: phase 7a's ingress geometry at N = 256, on a 4-shard mesh; 1
+#: timed round (7a's 3, cut for time) between the warm-up and the traced one
+MESH_7A_N = 256
+MESH_7A_SHARDS = 4
+MESH_7A_ROUNDS = 1
+#: 12d: keys the pinned pair loads
+PINNED_KEYS = 1 << 16
+
+
+def card_mesh(shards: int, device: str = "cuda"):
+    """A mesh of ``shards`` shards on one card (``cuda:0`` listed once a
+    shard) — the shape a one-card host can run."""
+    from delta_crdt_ex_tpu_torch.utils.devices import fleet_mesh
+
+    dev = "cuda:0" if device == "cuda" else device
+    return fleet_mesh(shards, devices=[dev] * shards)
+
+
+def mesh_fleet_leg(shards: int, store, device_name: str, device: str = "cuda", mesh=None) -> dict:
+    """12a: n members in ONE mesh fleet gossiping pairwise (member i with
+    member i + n/2, so every co-mesh edge crosses half the mesh) plus a
+    sink a member, against a vmap fleet fed the same script. A round
+    times the egress tick (member-syncs/s) and the drain of the
+    plane-delivered entries (merges/s) of both fleets; every sink's
+    stream must equal its twin sink's; at the end every member's state
+    columns, canonical bytes, seq and in-flight slots equal its twin's,
+    the plane carried intra-mesh entries, and the only fallback entries
+    are the sinks'. Returns the leg's numbers and both fleets' members."""
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.models.binned import to_numpy as b_np
+    from delta_crdt_ex_tpu_torch.models.hash_store import to_numpy as h_np
+    from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n, rounds = MESH_N, MESH_ROUNDS
+    mesh = card_mesh(shards, device) if mesh is None else mesh
+    leg = f"12a {store or 'binned'} shards={shards} on {[str(d) for d in mesh.devices]}"
+    tag = f"mz{store or 'b'}{shards}{mesh.devices[-1].index}"
+    t0 = time.perf_counter()
+    t = LocalTransport()
+    mk = lambda name, node: dc.start_link(
+        dc.AWLWWMap, threaded=False, transport=t, clock=LogicalClock(), capacity=(1 << MESH_DEPTH) * 16,
+        tree_depth=MESH_DEPTH, name=name, node_id=node, sync_timeout=3600.0, store=store, device=device,
+    )
+    fm = [mk(f"{tag}m{i}", 10_000 + i) for i in range(n)]
+    vm = [mk(f"{tag}v{i}", 10_000 + i) for i in range(n)]
+    for i in range(n):
+        t.register(f"{tag}mr{i}", _Sink())
+        t.register(f"{tag}vr{i}", _Sink())
+        fm[i].set_neighbours([fm[(i + n // 2) % n], f"{tag}mr{i}"])
+        vm[i].set_neighbours([vm[(i + n // 2) % n], f"{tag}vr{i}"])
+    f_mesh, f_vmap = dc.Fleet(fm, mesh=mesh), dc.Fleet(vm)
+    setup_s = time.perf_counter() - t0
+    dts: dict = {"mesh_egress": [], "vmap_egress": [], "mesh_ingress": [], "vmap_ingress": []}
+    merged: list = []
+    sink_entries = 0
+    for rnd in range(rounds + 1):  # round 0 warms up
+        base = 1_000_003 * rnd
+        for i in range(n):
+            items = [[base + i * 1000 + j, base + i * 1000 + j] for j in range(MESH_KEYS)]
+            fm[i].mutate_batch("add", items)
+            vm[i].mutate_batch("add", items)
+        for name, f in (("mesh", f_mesh), ("vmap", f_vmap)):
+            sync()
+            t1 = time.perf_counter()
+            f.sync_tick()
+            sync()
+            if rnd:
+                dts[f"{name}_egress"].append(time.perf_counter() - t1)
+        for i in range(n):
+            a_msgs, b_msgs = t.drain(f"{tag}mr{i}"), t.drain(f"{tag}vr{i}")
+            if not len(a_msgs) == len(b_msgs) > 0:
+                raise AssertionError(f"{leg}: round {rnd} sink {i}: {len(a_msgs)} vs {len(b_msgs)} messages")
+            for a, b in zip(a_msgs, b_msgs):
+                if not _norm_eq(_norm_out(a), _norm_out(b)):
+                    raise AssertionError(f"{leg}: round {rnd} sink {i}: outbound {type(a).__name__} differs")
+            sink_entries += sum(isinstance(m, sync_proto.EntriesMsg) for m in a_msgs)
+        for r in fm + vm:
+            _entries_to(t, r.addr)  # walk back-traffic out: merges are the quantity
+        counts = {}
+        for name, f in (("mesh", f_mesh), ("vmap", f_vmap)):
+            sync()
+            t1 = time.perf_counter()
+            counts[name] = f.drain()
+            sync()
+            if rnd:
+                dts[f"{name}_ingress"].append(time.perf_counter() - t1)
+        if not counts["mesh"] == counts["vmap"] > 0:
+            raise AssertionError(f"{leg}: round {rnd}: mesh drained {counts['mesh']}, vmap {counts['vmap']}")
+        if rnd:
+            merged.append(counts["mesh"])
+        for r in fm + vm:
+            r._outstanding.clear()
+            r._sync_open_seq.clear()
+    to_np = h_np if store == "hash" else b_np
+    for a, b in zip(fm, vm):
+        if a._seq != b._seq or a._seq <= 0 or len(a._outstanding) != len(b._outstanding):
+            raise AssertionError(f"{leg}: {a.name} seq/slots {a._seq}/{len(a._outstanding)} vs {b._seq}/{len(b._outstanding)}")
+        ca, cb = to_np(a.state), to_np(b.state)
+        for c in ca:
+            if not np.array_equal(ca[c], cb[c]):
+                raise AssertionError(f"{leg}: mesh/vmap state diverged at {a.name}: {c}")
+        if a.canonical_state_bytes() != b.canonical_state_bytes():
+            raise AssertionError(f"{leg}: mesh/vmap canonical bytes diverged at {a.name}")
+    check_on_card(fm + vm, "cuda" if cuda else device)
+    ms = f_mesh.stats()["mesh"]
+    if not ms["enabled"] or ms["shards"] != shards or ms["intra_entries"] <= 0:
+        raise AssertionError(f"{leg}: the plane carried nothing: {ms}")
+    if ms["fallback_entries"] != sink_entries:
+        raise AssertionError(f"{leg}: fallback entries {ms['fallback_entries']}, but the sinks got {sink_entries}")
+    if shards > 1 and not (ms["exchanges"] > 0 and ms["permuted_bytes"] > 0):
+        raise AssertionError(f"{leg}: no rotation ran: {ms}")
+    med = lambda ds: float(np.median(ds))
+    m = {
+        "replicas": n, "shards": shards, "store": store or "binned", "devices": [str(d) for d in mesh.devices],
+        "setup_s": setup_s,
+        "mesh_member_syncs_per_sec": n / med(dts["mesh_egress"]), "vmap_member_syncs_per_sec": n / med(dts["vmap_egress"]),
+        "mesh_merges_per_sec": sum(merged) / sum(dts["mesh_ingress"]),
+        "vmap_merges_per_sec": sum(merged) / sum(dts["vmap_ingress"]),
+        "mesh_egress_ms": [x * 1e3 for x in dts["mesh_egress"]], "vmap_egress_ms": [x * 1e3 for x in dts["vmap_egress"]],
+        "mesh_ingress_ms": [x * 1e3 for x in dts["mesh_ingress"]], "vmap_ingress_ms": [x * 1e3 for x in dts["vmap_ingress"]],
+        "merges_per_round": merged, "sink_entries": sink_entries,
+        "intra_entries": ms["intra_entries"], "fallback_entries": ms["fallback_entries"],
+        "permuted_bytes": ms["permuted_bytes"], "exchanges": ms["exchanges"],
+        "members_per_shard": ms["members_per_shard"], "topology": ms["topology"],
+    }
+    log(f"[mesh] {leg}: mesh {m['mesh_member_syncs_per_sec']:.3f} vs vmap {m['vmap_member_syncs_per_sec']:.3f} "
+        f"member-syncs/s, mesh {m['mesh_merges_per_sec']:.3f} vs vmap {m['vmap_merges_per_sec']:.3f} merges/s "
+        f"(median egress ticks ms mesh {[round(x, 3) for x in m['mesh_egress_ms']]}, vmap "
+        f"{[round(x, 3) for x in m['vmap_egress_ms']]}); {ms['intra_entries']} intra / {ms['fallback_entries']} "
+        f"fallback (= the sinks') entries, {ms['exchanges']} exchanges, {ms['permuted_bytes']} B permuted; every "
+        f"member's state, canonical bytes, seq and slots equal its vmap twin's, every sink stream equal; "
+        f"set-up {setup_s:.3f} s on {device_name}")
+    m["members"] = fm
+    return m
+
+
+def mesh_hash_reads(members, device_name: str, device: str = "cuda") -> dict:
+    """12a's hash leg, after it: ``read_keys`` on every mesh-fleet member
+    (each holds its own keys and its partner's), which launches the probe
+    kernel on the member's table; then the kernel held bit-equal to its
+    plain version on every member's own table at the Q it launched at."""
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+
+    n = len(members)
+    keys_of = lambda i: [1_000_003 * rnd + i * 1000 + j for rnd in range(MESH_ROUNDS + 1) for j in range(MESH_KEYS)]
+    probe_lookup_kernel.reset()
+    for i, r in enumerate(members):
+        want = {k: k for k in keys_of(i) + keys_of((i + n // 2) % n)}
+        got = r.read_keys(list(want))
+        if got != want:
+            raise AssertionError(f"12a hash: member {r.name} read_keys differs from its written keys")
+    launches = probe_lookup_kernel.launches
+    by_shape = {f"{h}x{w}x{q}": c for (h, w, q), c in probe_lookup_kernel.launches_by_shape.items()}
+    if device == "cuda" and launches < n:  # (a rehearsal on the CPU has no kernel)
+        raise AssertionError(f"12a hash: {launches} probe launches for {n} members' reads")
+    qs = sorted({q for (_h, _w, q) in probe_lookup_kernel.launches_by_shape})
+    err = 0
+    for i, r in enumerate(members):
+        with r._lock:
+            st = r.state
+        extra = keys_of(i) + keys_of((i + n // 2) % n)
+        err = max(err, check_main_tables([(r.name, st)], 0, [], extra=extra, q_sizes=qs, quiet=True))
+    log(f"[mesh] 12a hash: read_keys on all {n} mesh-fleet members read back every written key; probe launches "
+        f"{launches} by (H, W, Q) {by_shape}, bit-equal to probe_lookup_ref on every member's table at Q {qs} "
+        f"on {device_name}")
+    return {"launches": launches, "probe_by_shape": by_shape, "table_max_abs_err": err}
+
+
+def mesh_gossip(base, device_name: str, device: str = "cuda") -> dict:
+    """12c: ``gossip_delta_drive`` over an 8-shard mesh at phase 6's
+    geometry — 8 replicas grown from the fan-in's base, 4096 fresh
+    entries each — with the frontier at the whole tree (every differing
+    bucket ships a step): steps until no bucket differs, then every
+    root equal and every replica's entries and context equal, the base's
+    entries plus all 8 × 4096 fresh ones; one step timed by itself."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.apply import OP_PAD
+    from delta_crdt_ex_tpu_torch.parallel import gossip_delta_drive, gossip_delta_step, place_states
+
+    n = GOSSIP_LANES
+    L = base.num_buckets
+    mesh = card_mesh(n, device)
+    stacked = place_states(gossip_lanes(base, device), mesh)
+    want = int(base.alive.sum()) + n * GOSSIP_FRESH
+    slots = np.zeros(n, np.int32)
+    empty = (np.full((n, 1), -1, np.int32), np.full((n, 1, 1), OP_PAD, np.int32), np.zeros((n, 1, 1), np.uint64),
+             np.zeros((n, 1, 1), np.uint32), np.zeros((n, 1, 1), np.int64))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    steps, retiers, decay = 0, 0, []
+    while True:
+        stacked, roots, n_diff, r = gossip_delta_drive(mesh, stacked, slots, *empty, frontier=L)
+        steps += 1
+        retiers += r
+        decay.append(int(n_diff.gather().max()))
+        if decay[-1] == 0 or steps > 2 * n:
+            break
+    sync()
+    wall = time.perf_counter() - t0
+    if decay[-1] != 0:
+        raise AssertionError(f"12c: divergence left after {steps} steps: {decay}")
+    roots_h = roots.gather().cpu().numpy()
+    if not (roots_h == roots_h[0]).all():
+        raise AssertionError(f"12c: roots differ: {roots_h.tolist()}")
+    views = canonical_lanes(stacked.gather())
+    for i, (ent, ctx) in enumerate(views):
+        if not (np.array_equal(ent, views[0][0]) and np.array_equal(ctx, views[0][1])):
+            raise AssertionError(f"12c: replica {i}'s content differs from replica 0's")
+    if views[0][0].shape[1] != want:
+        raise AssertionError(f"12c: {views[0][0].shape[1]} alive entries, want {want}")
+    sync()
+    t1 = time.perf_counter()
+    gossip_delta_step(mesh, stacked, slots, *empty, frontier=L)
+    sync()
+    m = {"replicas": n, "buckets": L, "frontier": L, "steps": steps, "retiers": retiers, "n_diff_by_step": decay,
+         "wall_s": wall, "converged_step_ms": (time.perf_counter() - t1) * 1e3, "entries": want}
+    log(f"[mesh] 12c gossip_delta_drive on {n} shards of {mesh.devices[0]} (L = {L}, frontier {L}): n_diff by step {decay}, "
+        f"{steps} steps, {retiers} retiers, {wall:.3f} s; a converged step {m['converged_step_ms']:.3f} ms; every "
+        f"root equal, every replica's {want} entries and context equal on {device_name}")
+    return m
+
+
+def pinned_pair(device_name: str, device: str = "cuda") -> dict:
+    """12d: two replicas pinned to one card (``device="cuda:0"``) and,
+    for comparison, two on a bare ``"cuda"`` (the host plane): replica 1
+    loads ``n_keys`` keys, sync rounds run until replica 2's canonical
+    bytes equal replica 1's. The pinned pair's slices ride the device
+    plane (``replica.slice_place`` counted, tensor bodies, every merge
+    labelled ``device``), the unpinned pair's the host plane; both end
+    equal and every state column stays on the card."""
+    import torch
+
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime import telemetry
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+    from delta_crdt_ex_tpu_torch.utils import transfers
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    pinned, n_keys = f"{device}:0", PINNED_KEYS
+    out = {}
+    canon = {}
+    for plane, dev in (("device", pinned), ("host", device)):
+        t = LocalTransport()
+        mk = lambda name: dc.start_link(dc.AWLWWMap, threaded=False, transport=t, clock=LogicalClock(), name=name,
+                                        capacity=n_keys * 2, tree_depth=12, max_sync_size=4096, device=dev)
+        a, b = mk(f"pp{plane}a"), mk(f"pp{plane}b")
+        a.set_neighbours([b])
+        b.set_neighbours([a])
+        a.mutate_batch("add", [[f"pin{k}", k] for k in range(n_keys)])
+        planes: list = []
+        rec = lambda _e, _m, meta: planes.append(meta["plane"])
+        telemetry.attach(telemetry.SYNC_ROUND, rec)
+        before = transfers.snapshot()
+        sync()
+        t0 = time.perf_counter()
+        rounds = 0
+        try:
+            while rounds < 50:
+                rounds += 1
+                for r in (a, b):
+                    r.sync_to_all()
+                t.pump()
+                if b.canonical_state_bytes() == a.canonical_state_bytes():
+                    break
+        finally:
+            telemetry.detach(telemetry.SYNC_ROUND, rec)
+        sync()
+        dt = time.perf_counter() - t0
+        now = transfers.snapshot()
+        placed = now["replica.slice_place"]["count"] - before["replica.slice_place"]["count"]
+        if b.canonical_state_bytes() != a.canonical_state_bytes():
+            raise AssertionError(f"12d {plane}: the pair did not converge in {rounds} rounds")
+        if plane == "device" and not (placed > 0 and planes and set(planes) == {"device"}):
+            raise AssertionError(f"12d device: {placed} slices placed, merge planes {set(planes)}")
+        if plane == "host" and (placed or set(planes) != {"host"}):
+            raise AssertionError(f"12d host: {placed} slices placed, merge planes {set(planes)}")
+        check_on_card([a, b], device)
+        if plane == "device" and not (a.pinned_device == b.pinned_device == torch.device(pinned)):
+            raise AssertionError("12d: the pair is not pinned")
+        canon[plane] = b.read_keys([f"pin{k}" for k in range(0, n_keys, 97)])
+        out[plane] = {"rounds": rounds, "converge_s": dt, "slices_placed": placed, "merges": len(planes)}
+        for r in (a, b):
+            r.stop()
+    if canon["device"] != canon["host"]:
+        raise AssertionError("12d: the pinned pair reads differently from the host-plane pair")
+    log(f"[mesh] 12d pinned pair on {pinned}: {n_keys} keys converged in {out['device']['rounds']} rounds, "
+        f"{out['device']['converge_s']:.3f} s, {out['device']['slices_placed']} slices placed on the device plane, "
+        f"{out['device']['merges']} merges all labelled device, every column on the card; the host-plane pair "
+        f"on {device}: {out['host']['rounds']} rounds, {out['host']['converge_s']:.3f} s, {out['host']['merges']} "
+        f"merges; both read alike on {device_name}")
+    return out
+
+
+def phase_mesh(device_name: str, base=None, device: str = "cuda") -> dict:
+    """Phase 12: the multi-device mesh (12a-12e); see the module
+    docstring. ``base`` is the fan-in's base state (built here when the
+    phase runs alone)."""
+    import torch
+
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    t0 = time.perf_counter()
+    probe_lookup_kernel.reset()  # the mesh path's run starts here
+    batched_roots_kernel.reset()
+    out: dict = {}
+    legs_s: dict = {}
+    for shards in MESH_SHARDS:
+        t1 = time.perf_counter()
+        m = mesh_fleet_leg(shards, None, device_name, device)
+        m.pop("members")
+        out[f"12a_binned_{shards}"] = m
+        legs_s[f"12a_binned_{shards}"] = time.perf_counter() - t1
+    probe_before = probe_lookup_kernel.launches
+    if probe_before:
+        raise AssertionError(f"12a binned: {probe_before} probe launches on the binned mesh path")
+    t1 = time.perf_counter()
+    m = mesh_fleet_leg(MESH_SHARDS[-1], "hash", device_name, device)
+    members = m.pop("members")
+    m["reads"] = mesh_hash_reads(members, device_name, device)
+    # the launches the checks made against the plain version do not count
+    compared = probe_lookup_kernel.launches - m["reads"]["launches"]
+    out[f"12a_hash_{MESH_SHARDS[-1]}"] = m
+    legs_s[f"12a_hash_{MESH_SHARDS[-1]}"] = time.perf_counter() - t1
+    reads = m["reads"]
+    t1 = time.perf_counter()
+    m = fleet_ingress(MESH_7A_N, None, device_name, device, mesh=card_mesh(MESH_7A_SHARDS, device),
+                      rounds=MESH_7A_ROUNDS)
+    out[f"12b_ingress_{MESH_7A_N}_shards_{MESH_7A_SHARDS}"] = m
+    legs_s["12b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    if base is None:
+        from delta_crdt_ex_tpu_torch.utils.synth import build_state
+
+        geo = FANIN_FULL
+        keys = np.random.default_rng(0).integers(1, 1 << 63, size=geo["keys"], dtype=np.uint64)
+        base, _ = build_state(11, keys, geo["L"], geo["B"], geo["R"], device=device)
+        legs_s["12c_base_build"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+    out["12c_gossip"] = mesh_gossip(base, device_name, device)
+    legs_s["12c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["12d_pinned_pair"] = pinned_pair(device_name, device)
+    legs_s["12d"] = time.perf_counter() - t1
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        from delta_crdt_ex_tpu_torch.utils.devices import fleet_mesh
+
+        m = mesh_fleet_leg(2, None, device_name, mesh=fleet_mesh(2, devices=["cuda:0", "cuda:1"]))
+        m.pop("members")
+        out["12e_two_cards"] = m
+    else:
+        out["12e_two_cards"] = None
+        log(f"[mesh] 12e: only one card is present ({n_cards}); no cross-card run was possible")
+    out["launches"] = {probe_lookup_kernel.name: probe_lookup_kernel.launches - compared,
+                       batched_roots_kernel.name: batched_roots_kernel.launches}
+    if out["launches"][batched_roots_kernel.name]:
+        raise AssertionError(f"the roots kernel was launched on the mesh path: {out['launches']}")
+    if out["launches"][probe_lookup_kernel.name] != reads["launches"]:
+        raise AssertionError(f"probe launches on the mesh path {out['launches']} are not 12a's reads' {reads['launches']}")
+    out["probe_by_shape"] = reads["probe_by_shape"]
+    out["table_max_abs_err"] = reads["table_max_abs_err"]
+    out["phase_s"] = time.perf_counter() - t0
+    out["legs_s"] = legs_s
+    log(f"[mesh] phase 12 {out['phase_s']:.3f} s (by leg {json.dumps({k: round(v, 3) for k, v in legs_s.items()})}); "
+        f"kernel launches on the mesh path {out['launches']} ({compared} more compared the probe with its plain "
+        f"version) on {device_name}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
@@ -4211,6 +4648,8 @@ def main() -> int:
     serve_b = lambda reps, t, want: serve_binned(reps, t, want, args.keys, name_power)
     serve_h = lambda reps, logs, want: serve_hash(reps, logs, want, args.keys // 8, name_power)
     if args.only:
+        if "12" in args.only:
+            log("[mesh-metrics] " + json.dumps(phase_mesh(name_power)))
         if "11" in args.only:
             log("[tree-metrics] " + json.dumps(phase_tree(name_power)))
         if "10" in args.only:
@@ -4274,8 +4713,13 @@ def main() -> int:
     fp = phase_fanin_packed(name_power, f.pop("prior"))
     phase_t["5p"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
-    g = phase_ring_gossip(f.pop("base"))
+    base = f.pop("base")
+    g = phase_ring_gossip(base)
     phase_t["6"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    ms = phase_mesh(name_power, base=base)
+    del base
+    phase_t["12"] = time.perf_counter() - t_phase
     log("[fanin-metrics] " + json.dumps(f))
     log("[fanin-packed-metrics] " + json.dumps(fp))
     log(f"[fanin-layouts] merges/s columns {f['merges_per_sec']:.3f}, packed_scomp "
@@ -4284,6 +4728,7 @@ def main() -> int:
         f"{f['peak_mem_bytes']}, {fp['packed_scomp']['peak_mem_bytes']}, {fp['packed_topk']['peak_mem_bytes']} B "
         f"on {name_power}")
     log("[gossip-metrics] " + json.dumps(g))
+    log("[mesh-metrics] " + json.dumps(ms))
     t_phase = time.perf_counter()
     fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S + TREE_RESERVE_S)
     phase_t["7"] = time.perf_counter() - t_phase
@@ -4308,7 +4753,7 @@ def main() -> int:
     # each hash-store path's launches were held against the plain
     # version on its own tables at the Q it launched at
     probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"],
-                               sv["10b"]["table_max_abs_err"], tr["11b"]["table_max_abs_err"])
+                               sv["10b"]["table_max_abs_err"], tr["11b"]["table_max_abs_err"], ms["table_max_abs_err"])
     probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
                                  "durability_hash": du["8b"]["probe_launches"],
                                  "tcp_hash": tc["9b"]["launches"][probe_lookup_kernel.name],
@@ -4317,7 +4762,8 @@ def main() -> int:
                                  "serve_binned": sv["10a"]["launches"][probe_lookup_kernel.name],
                                  "serve_fleet": sv["10c"]["launches"][probe_lookup_kernel.name],
                                  "tree_binned": tr["11a"]["launches"][probe_lookup_kernel.name],
-                                 "tree_hash": tr["11b"]["launches"]}
+                                 "tree_hash": tr["11b"]["launches"],
+                                 "mesh_hash": ms["launches"][probe_lookup_kernel.name]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     # the replica paths' launches by the exact shape they ran at, each
     # row's launches and loss from its own shape: the headline rows take
@@ -4328,7 +4774,7 @@ def main() -> int:
         for k, n in du["8b"][when]["probe_by_shape"].items():
             by_shape[k] = by_shape.get(k, 0) + n
     for k, n in (list(tc["9b"]["probe_by_shape"].items()) + list(sv["10b"]["launches_by_shape"].items())
-                 + list(tr["11b"]["probe_by_shape"].items())):
+                 + list(tr["11b"]["probe_by_shape"].items()) + list(ms["probe_by_shape"].items())):
         by_shape[k] = by_shape.get(k, 0) + n
     head_keys = set()
     for row in probe["shapes"]:
@@ -4344,7 +4790,8 @@ def main() -> int:
     roots["launches_by_path"] = {"fanin": f["launches"], "fanin_packed_scomp": fp["packed_scomp"]["launches"],
                                  "fanin_packed_topk": fp["packed_topk"]["launches"], "gossip": g["launches"],
                                  "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0,
-                                 "serve": 0, "tree": tr["11a"]["launches"][batched_roots_kernel.name]}
+                                 "serve": 0, "tree": tr["11a"]["launches"][batched_roots_kernel.name],
+                                 "mesh": ms["launches"][batched_roots_kernel.name]}
     roots["max_abs_err"] = max([roots["max_abs_err"]] + [x["roots_max_abs_err"] for x in fanin_runs])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

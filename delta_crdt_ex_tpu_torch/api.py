@@ -24,7 +24,7 @@ from typing import Any
 
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
-from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet, check_unported
+from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
 from delta_crdt_ex_tpu_torch.runtime.metrics import resolve_obs
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
@@ -127,6 +127,8 @@ def start_fleet(
     names: "list | None" = None,
     min_batch: int = 2,
     store: "str | None" = None,
+    mesh=None,
+    mesh_narrow: bool = True,
     **opts,
 ) -> Fleet:
     """Start ``n`` replicas served by ONE batched event loop
@@ -143,8 +145,19 @@ def start_fleet(
     ``.replicas`` are ordinary replica handles. ``threaded=False``
     leaves driving to the caller (``fleet.tick()`` / ``fleet.drain()``
     and ``fleet.sync_tick()`` or ``fleet.run_duties()``). ``obs=``
-    registers the fleet and every member on the plane; ``mesh=`` raises:
-    it comes with a later slice.
+    registers the fleet and every member on the plane.
+
+    ``mesh=`` (default off) runs the fleet's batched dispatches over a
+    1-D replica mesh: pass a
+    :class:`~delta_crdt_ex_tpu_torch.utils.devices.Mesh` (``fleet_mesh``
+    builds one; a device may be listed several times), an int shard
+    count, or ``True`` for the detected devices' default. Each shard
+    then runs its lane block of every batched call on its own device,
+    resident stacked states stay block-split between ticks, and
+    sync-tick messages between co-mesh members deliver as device-side
+    rotations (only off-mesh destinations take the transport).
+    ``mesh_narrow=False`` keeps the padded exchange, whose buffers cross
+    to the host and back. Semantics are the vmap fleet's, bit for bit.
 
     ``tree_gossip=True`` members are stamped with ONE shared tier-0
     cluster key, so the whole fleet forms a single bottom-tier subtree of
@@ -155,7 +168,6 @@ def start_fleet(
         raise ValueError(f"{len(names)} names for {n} replicas")
     # one plane for every member and the fleet (resolved once)
     obs = resolve_obs(opts.pop("obs", None))
-    check_unported(mesh=opts.pop("mesh", None))
     opts.setdefault("sync_interval", DEFAULT_SYNC_INTERVAL)
     opts.setdefault("max_sync_size", DEFAULT_MAX_SYNC_SIZE)
     crdt_module = _resolve_store(crdt_module, store)
@@ -165,7 +177,7 @@ def start_fleet(
         if names is not None:
             member["name"] = names[i]
         replicas.append(Replica(crdt_module, obs=obs, **member))
-    fleet = Fleet(replicas, min_batch=min_batch, obs=obs)
+    fleet = Fleet(replicas, min_batch=min_batch, obs=obs, mesh=mesh, mesh_narrow=mesh_narrow)
     if threaded:
         fleet.start()
     return fleet

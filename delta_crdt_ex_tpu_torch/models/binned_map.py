@@ -416,12 +416,6 @@ def merge_group_into(state: BinnedStore, arrays_list: list, on_grow=None):
     return grouped_merge(merge_rows_into, state, arrays_list, on_grow=on_grow)
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it comes with a later slice (ROADMAP.md queue 1)"
-    )
-
-
 class BinnedAWLWWMap:
     """Model class: the AWLWWMap op vocabulary over :class:`BinnedStore`
     (``binned_map.py:470``) — the default ``crdt_module`` of the port's
@@ -521,19 +515,29 @@ class BinnedAWLWWMap:
 
         return transition.fleet_interval_slices(states, rows, self_slots, gid_selfs, lo), None
 
-    # the mesh seams (shard_mapped batched forms) come with their slice
+    # the mesh seams (``binned_map.py:595-625``): the same batched forms
+    # over a replica mesh, each shard running its own lane block on its
+    # own device; lane k is the vmapped (and so the solo) call on lane
+    # k's inputs, so the fleet's mesh mode swaps these in and keeps every
+    # piece of bookkeeping
 
     @classmethod
     def mesh_fleet_merge_rows(cls, mesh, states, slices):
-        raise _later_slice("the mesh-sharded fleet merge (the multi-device mesh slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.mesh_fleet_merge_rows(mesh, states, slices)
 
     @classmethod
     def mesh_fleet_extract_rows(cls, mesh, states, rows):
-        raise _later_slice("the mesh-sharded fleet extraction (the multi-device mesh slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.mesh_fleet_extract_rows(mesh, states, rows), None
 
     @classmethod
     def mesh_fleet_extract_own_delta(cls, mesh, states, rows, self_slots, gid_selfs, lo):
-        raise _later_slice("the mesh-sharded fleet delta extraction (the multi-device mesh slice)")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.mesh_fleet_interval_slices(mesh, states, rows, self_slots, gid_selfs, lo), None
 
 
 class AWSet(BinnedAWLWWMap):

@@ -288,12 +288,6 @@ def _lane_tiers(counts) -> list:
     return [_pow2(max(c, 1), floor=4) for c in counts.amax(dim=1).tolist()]
 
 
-def _mesh_slice(what: str) -> NotImplementedError:
-    from delta_crdt_ex_tpu_torch.models.binned_map import _later_slice
-
-    return _later_slice(f"the mesh-sharded fleet {what} (the multi-device mesh slice)")
-
-
 def extract_rows(state: HashStore, rows):
     """Dense full-row slice: a counting pass sizes the pow2 lane tier,
     the packed gather fills it."""
@@ -440,17 +434,33 @@ class HashAWLWWMap:
         tiers = _lane_tiers(transition.fleet_hash_own_delta_counts(states, rows, self_slots, lo))
         return transition.fleet_hash_interval_slices(states, rows, self_slots, gid_selfs, lo, max(tiers)), tiers
 
+    # the mesh seams (``hash_store.py:522-565``): the sizing pass runs
+    # on the mesh too, and the bucket-wide dense tier comes from the
+    # gathered counts as in the batched forms — padding lanes count no
+    # entries, so the tier never moves with the shard padding
+
     @classmethod
     def mesh_fleet_merge_rows(cls, mesh, states, slices):
-        raise _mesh_slice("merge")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        return transition.mesh_fleet_hash_merge_rows(mesh, states, slices)
 
     @classmethod
     def mesh_fleet_extract_rows(cls, mesh, states, rows):
-        raise _mesh_slice("extraction")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        tiers = _lane_tiers(transition.mesh_fleet_hash_row_counts(mesh, states, rows).gather())
+        return transition.mesh_fleet_hash_extract_rows(mesh, states, rows, max(tiers)), tiers
 
     @classmethod
     def mesh_fleet_extract_own_delta(cls, mesh, states, rows, self_slots, gid_selfs, lo):
-        raise _mesh_slice("delta extraction")
+        from delta_crdt_ex_tpu_torch.runtime import transition
+
+        tiers = _lane_tiers(transition.mesh_fleet_hash_own_delta_counts(mesh, states, rows, self_slots, lo).gather())
+        return (
+            transition.mesh_fleet_hash_interval_slices(mesh, states, rows, self_slots, gid_selfs, lo, max(tiers)),
+            tiers,
+        )
 
 
 class HashAWSet(HashAWLWWMap):

@@ -61,6 +61,7 @@ import torch
 from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
+from delta_crdt_ex_tpu_torch.utils.transfers import device_layout
 
 _LONG = torch.int64
 M32 = 0xFFFFFFFF
@@ -177,19 +178,18 @@ WIRE_DTYPES = {
 }
 
 
-def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+def _to_torch(a, device) -> torch.Tensor:
     """Wire numpy → the port's torch layout (uint64 → int64 bits,
-    uint32 → int64 values, int32 rows → int64)."""
-    a = np.asarray(a)
-    if a.dtype == np.uint64:
-        a = np.ascontiguousarray(a).view(np.int64)
-    elif a.dtype == np.uint32:
-        a = a.astype(np.int64)
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    uint32 → int64 values, int32 rows → int64). A tensor column (a
+    device-plane body) is in that layout already and only moves."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    return device_layout(a).to(device)
 
 
 def slice_from_wire(a: dict, device) -> RowSlice:
-    """A RowSlice on ``device`` from an EntriesMsg column dict."""
+    """A RowSlice on ``device`` from an EntriesMsg column dict (numpy
+    wire columns, or a device-plane body's tensors)."""
     rows = _to_torch(np.asarray(a["rows"], np.int64), device)
     cols = {c: _to_torch(a[c], device) for c in RowSlice._fields if c != "rows"}
     return RowSlice(rows=rows, **cols)

@@ -39,9 +39,7 @@ The serving and observability planes: ``obs=`` registers the fleet's
 varz and health sources and a scrape-time collector (occupancy, fill,
 ticks, egress), :meth:`Fleet.frontdoor` is one front door per member
 with key-hash routing, :meth:`Fleet.health` checks the shared loop's
-tick freshness. Not ported yet: ``mesh=`` (the multi-device mesh
-slice), which raises ``NotImplementedError`` naming it (``ROADMAP.md``
-queue 1). A sync tick's sends to a peer process
+tick freshness. A sync tick's sends to a peer process
 whose TCP connection negotiated fleet frames aggregate into ONE
 ``FleetFrameMsg`` per endpoint (:class:`_FrameCollector`), as in the
 JAX fleet. Tree-mode members (``tree_gossip=True``) share ONE tier-0
@@ -52,6 +50,21 @@ ingress waves (:meth:`Fleet.tick`) and on the egress tick's send, so
 re-emissions ride the frame collector. Members with a ``wal_dir`` log what
 the batched merge commits through the solo commit tail, so a crashed
 member recovers as a solo replica.
+
+MESH MODE (``mesh=``): the same fleet over a 1-D replica mesh
+(:mod:`delta_crdt_ex_tpu_torch.utils.devices`). Every batched dispatch
+swaps its fleet form for the ``mesh_fleet_*`` twin
+(:mod:`delta_crdt_ex_tpu_torch.runtime.transition`), with the lane tier
+padded to a shard multiple; resident stacked states stay block-split
+over the shards between ticks (a batched result is already laid out for
+the next dispatch); and a sync tick's messages bound for a co-mesh
+member ride the intra-mesh delivery plane
+(:mod:`delta_crdt_ex_tpu_torch.runtime.meshplane`) as rotations — only
+off-mesh destinations take the frame collector or a direct send. Lane k
+of a sharded dispatch is the fleet form on lane k's inputs, so mesh and
+vmap fleets are equal on state bits, WAL bytes, acks and wire bytes. A
+member's lane, when something per-replica reads it, is copied out onto
+the member's own device.
 """
 
 from __future__ import annotations
@@ -68,12 +81,15 @@ from delta_crdt_ex_tpu_torch.models.binned_map import stack_entry_slices
 from delta_crdt_ex_tpu_torch.ops.binned import _i64
 from delta_crdt_ex_tpu_torch.runtime import metrics as metrics_mod
 from delta_crdt_ex_tpu_torch.runtime import sync as sync_proto, telemetry, transition, treesync
+from delta_crdt_ex_tpu_torch.runtime.meshplane import MeshPlane
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica, _LaneLevels, _StackedLevels
-from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils import devices as devices_mod, transfers
+from delta_crdt_ex_tpu_torch.utils.devices import Sharded
 from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
 from delta_crdt_ex_tpu_torch.utils.transfers import as_u32
 
 # audited device↔host transfer sites (the JAX fleet's labels)
+_TR_MESH_PLACE = transfers.register("fleet.mesh_place")
 _TR_DISPATCH_RESULT = transfers.register("fleet.dispatch_result")
 _TR_DISPATCH_COUNTS = transfers.register("fleet.dispatch_counts")
 _TR_OWN_CTR_COLUMNS = transfers.register("fleet.own_ctr_columns")
@@ -137,19 +153,6 @@ class _FrameCollector:
 _ENTRY_LANE_COLS = ("key", "valh", "ts", "node", "ctr", "alive")
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it comes with the {slice_name} slice (ROADMAP.md queue 1)"
-    )
-
-
-def check_unported(mesh=None) -> None:
-    """Raise for the fleet option of a later slice (``mesh=``); its off
-    values pass."""
-    if mesh is not None and mesh is not False:
-        raise _later("the mesh-sharded fleet (mesh=)", "multi-device mesh")
-
-
 def _lane_slice(host, lane: int, rows: np.ndarray, tier: "int | None"):
     """Lane ``lane`` of a host-fetched stacked RowSlice as the member's
     solo slice: the hash store packs each row's entries as an
@@ -207,11 +210,11 @@ class Fleet:
     event loop. Deterministic drives call :meth:`tick` / :meth:`drain` /
     :meth:`sync_tick`; :meth:`start` runs one background thread serving
     every member's periodic sync and the batched ingress drain. All
-    members keep their state on one device.
+    members keep their state on one device; a mesh fleet (``mesh=``)
+    runs its batched dispatches on the mesh's devices.
     """
 
-    def __init__(self, replicas: list, *, min_batch: int = 2, obs=None, mesh=None):
-        check_unported(mesh=mesh)
+    def __init__(self, replicas: list, *, min_batch: int = 2, obs=None, mesh=None, mesh_narrow: bool = True):
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
         for r in replicas:
@@ -238,6 +241,51 @@ class Fleet:
         #: smallest batch worth stacking: below it the per-replica
         #: grouped path is strictly cheaper
         self.min_batch = max(2, int(min_batch))
+        #: mesh mode: a 1-D replica mesh (a Mesh, an int shard count, or
+        #: True for the detected devices' default), default off. Batched
+        #: dispatches then run the mesh twins, resident stacked states
+        #: stay block-split over the shards, and intra-mesh sync-tick
+        #: entries deliver as rotations (runtime/meshplane.py)
+        self._mesh = None
+        self._mesh_shards = 1
+        self._mesh_sharding = None
+        self._mesh_plane = None
+        self._mesh_members_per_shard = 0.0
+        if mesh is not None and mesh is not False:
+            if mesh is True or isinstance(mesh, int):
+                mesh = devices_mod.fleet_mesh(None if mesh is True else mesh)
+            if tuple(mesh.axis_names) != (transition.MESH_AXIS,):
+                raise ValueError(
+                    f"fleet mesh must be 1-D over the {transition.MESH_AXIS!r} axis, got {mesh.axis_names}"
+                )
+            shards = int(mesh.shards)
+            if shards & (shards - 1):
+                raise ValueError(f"fleet mesh size must be a power of two, got {shards}")
+            if mesh.spans_processes:
+                raise ValueError("a fleet is one process: its mesh cannot span torch.distributed ranks")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(
+                    f"fleet mesh devices {[str(d) for d in mesh.devices]} are not the members' "
+                    f"device type ({self.device})"
+                )
+            self._mesh = mesh
+            self._mesh_shards = shards
+            self._mesh_sharding = transition.replica_sharding(mesh)
+            # mesh_narrow=False keeps the padded host round-trip exchange
+            self._mesh_plane = MeshPlane(mesh, narrow=mesh_narrow)
+            self._mesh_plane.assign([(r.addr, r.transport) for r in self.replicas])
+            # membership is fixed at construction: snapshot the ratio so
+            # stats() never calls into the plane under the fleet lock
+            self._mesh_members_per_shard = self._mesh_plane.members_per_shard()
+        # the device topology, read once: stats() must not enumerate
+        # devices under the fleet lock on every scrape
+        self._mesh_topology = devices_mod.detected_topology()
+        #: intra-mesh delivery accounting (read by stats() under the
+        #: fleet lock; the sync tick writes it there too)
+        self._mesh_intra_entries = 0
+        self._mesh_fallback_entries = 0
+        self._mesh_permuted_bytes = 0
+        self._mesh_exchanges = 0
         self._lock = threading.Lock()
         #: resident stacked states per batch bucket: (members, lanes) →
         #: (member state versions at commit, stacked store). Reused while
@@ -278,10 +326,14 @@ class Fleet:
             r._in_fleet = True
         #: tree gossip's tier 0: tree-mode members share ONE cluster key,
         #: so the whole fleet is a single bottom-tier subtree — hops
-        #: inside it are local mailbox deliveries, and only the captain
-        #: gossips outward
+        #: inside it are local mailbox (or, on a mesh, rotation)
+        #: deliveries, and only the captain gossips outward. A mesh fleet
+        #: keys the cluster on its mesh plane
         if any(r.tree_gossip for r in self.replicas):
-            group = treesync.fleet_group_key([r.addr for r in self.replicas])
+            if self._mesh_plane is not None:
+                group = self._mesh_plane.tree_group()
+            else:
+                group = treesync.fleet_group_key([r.addr for r in self.replicas])
             for r in self.replicas:
                 if r.tree_group is None:
                     r.tree_group = group
@@ -402,13 +454,13 @@ class Fleet:
                 continue
             self._dispatch_bucket(members)
 
-    @staticmethod
-    def _lane_tier(n: int) -> int:
-        """The replica axis of one batched call: the pow2 lane tier.
-        Torch compiles nothing per shape; the tier keeps the padding,
-        and with it ``stats()``'s occupancy and fill ratio, the JAX
-        fleet's."""
-        return pow2_tier(n, floor=2)
+    def _lane_tier(self, n: int) -> int:
+        """The replica axis of one batched call: the pow2 lane tier,
+        padded up to the shard count on a mesh so the lanes split evenly
+        over the shards (padding lanes merge and extract nothing). Torch
+        compiles nothing per shape; the tier keeps the padding, and with
+        it ``stats()``'s occupancy and fill ratio, the JAX fleet's."""
+        return pow2_tier(max(n, self._mesh_shards), floor=2)
 
     def _stacked_states(self, reps: list, lanes: int):
         """The stacked input states of one bucket: the previous
@@ -426,7 +478,13 @@ class Fleet:
             self._stack_misses += 1
         states = [r.state for r in reps]
         states += [states[0]] * (lanes - len(states))
-        return transition.stack_states(states), key
+        stacked = transition.stack_states(states)
+        if self._mesh_sharding is not None:
+            # a fresh stack is placed block-split over the mesh; a cached
+            # result is sharded already, which keeps the resident state
+            # on the shards between ticks
+            stacked = _TR_MESH_PLACE.put(stacked, self._mesh_sharding)
+        return stacked, key
 
     def _dispatch_bucket(self, members: list) -> None:
         t0 = time.perf_counter()
@@ -436,15 +494,19 @@ class Fleet:
         reps = [st.rep for st in members]
         stacked_in, cache_key = self._stacked_states(reps, lanes)
         # the bucket key holds the backend tag, so every member of a
-        # bucket shares one store backend and its batched merge
-        res = reps[0].model.fleet_merge_rows(stacked_in, sl)
+        # bucket shares one store backend and its batched merge; a mesh
+        # fleet runs the twin over the same stacked operands
+        if self._mesh is None:
+            res = reps[0].model.fleet_merge_rows(stacked_in, sl)
+        else:
+            res = reps[0].model.mesh_fleet_merge_rows(self._mesh, stacked_in, sl)
         # hash backend: per-lane window pressure rides the same host
         # read, so the growth advisory below costs no extra sync
         wfill = getattr(res, "max_window_fill", None)
-        flags = [res.ok.to(torch.int64), res.n_killed.to(torch.int64)]
-        if wfill is not None:
-            flags.append(wfill.to(torch.int64))
-        got = _TR_DISPATCH_RESULT.get(torch.stack(flags))  # one read for the whole bucket
+        flags = [res.ok, res.n_killed] + ([wfill] if wfill is not None else [])
+        if self._mesh is not None:
+            flags = [f.gather() for f in flags]
+        got = _TR_DISPATCH_RESULT.get(torch.stack([f.to(torch.int64) for f in flags]))  # one read for the bucket
         ok, n_killed = got[0], got[1]
         probe_window = getattr(stacked_in, "probe_window", 0)
         dt = time.perf_counter() - t0
@@ -457,7 +519,8 @@ class Fleet:
         def counts_for(lane, ins_rows=res.n_ins_row, kill_rows=res.n_kill_row):
             def fn():
                 if not counts_cell:
-                    counts_cell.append(_TR_DISPATCH_COUNTS.get(torch.stack([ins_rows, kill_rows])))
+                    both = [t.gather() if isinstance(t, Sharded) else t for t in (ins_rows, kill_rows)]
+                    counts_cell.append(_TR_DISPATCH_COUNTS.get(torch.stack(both)))
                 both = counts_cell[0]
                 return both[0][lane], both[1][lane]
 
@@ -574,9 +637,12 @@ class Fleet:
             tables += [tables[0]] * (lanes - len(items))
             slots = torch.zeros(lanes, dtype=torch.int64)
             slots[: len(items)] = torch.tensor([e.rep.self_slot for e in items])
-            cols = as_u32(_TR_OWN_CTR_COLUMNS.get(transition.fleet_own_ctr_columns(
-                transition.stack_pytrees(*tables), slots.to(self.device)
-            )))
+            stacked_tables = transition.stack_pytrees(*tables)
+            if self._mesh is None:
+                own = transition.fleet_own_ctr_columns(stacked_tables, slots.to(self.device))
+            else:
+                own = transition.mesh_fleet_own_ctr_columns(self._mesh, stacked_tables, slots)
+            cols = as_u32(_TR_OWN_CTR_COLUMNS.get(own))
             for lane, e in enumerate(items):
                 e.own_ctr = cols[lane]
 
@@ -630,7 +696,12 @@ class Fleet:
             lanes = self._lane_tier(len(items))
             leaves = [e.state.leaf for e in items]
             leaves += [leaves[0]] * (lanes - len(items))
-            stack = _StackedLevels(transition.fleet_tree_from_leaves(transition.stack_pytrees(*leaves)))
+            stacked_leaves = transition.stack_pytrees(*leaves)
+            if self._mesh is None:
+                levels = transition.fleet_tree_from_leaves(stacked_leaves)
+            else:
+                levels = transition.mesh_fleet_tree_from_leaves(self._mesh, stacked_leaves)
+            stack = _StackedLevels(levels)
             stack.prefetch(max(e.rep.levels_per_round for e in items))
             n_tree_batched += len(items)
             for lane, e in enumerate(items):
@@ -639,18 +710,27 @@ class Fleet:
         # phase 3 — per member, under its lock: adopt the batched tree
         # (version-guarded), emit every job through the shared
         # _emit_push_job tail, open the walk rounds, with sends
-        # aggregating into fleet frames
+        # aggregating into fleet frames. A mesh fleet interposes the
+        # intra-mesh delivery plane: co-mesh destinations buffer for the
+        # tick's exchange (delivered in order at flush), everything else
+        # takes the collector
+        exchange = self._mesh_plane.begin_tick() if self._mesh_plane is not None else None
         collectors: dict[int, _FrameCollector] = {}
         for ent in staged:
             rep = ent.rep
             coll = collectors.get(id(rep.transport))
             if coll is None:
                 coll = collectors[id(rep.transport)] = _FrameCollector(rep.transport)
+            if exchange is None:
+                send = coll.send
+            else:
+                # default-arg capture of JUST the collector's send
+                send = lambda to, m, _f=coll.send: exchange.send_via(_f, to, m)  # noqa: E731
             with rep._lock:
                 if ent.solo:
-                    rep._push_deltas(coll.send)
-                    rep._open_walks(coll.send)
-                    rep._relay_flush(coll.send)
+                    rep._push_deltas(send)
+                    rep._open_walks(send)
+                    rep._relay_flush(send)
                     continue
                 tv = lane_trees.get(id(rep))
                 if tv is not None and rep._tree is None and rep._state_version == tv[2]:
@@ -659,11 +739,17 @@ class Fleet:
                     sl = extracted.get(id(job))
                     if sl is None:
                         sl = rep._extract_push_job(job)
-                    rep._emit_push_job(job, sl, coll.send)
-                rep._open_walks(coll.send)
+                    rep._emit_push_job(job, sl, send)
+                rep._open_walks(send)
                 # the tick's relay epoch: coalesced re-emissions ride the
                 # same send, so fleet frames aggregate them per endpoint
-                rep._relay_flush(coll.send)
+                # (and co-mesh links take the exchange)
+                rep._relay_flush(send)
+
+        # phase 3.5 — the intra-mesh exchange: rotate the buffered co-mesh
+        # entries along the replica axis and deliver every buffered
+        # message in global send order (the host path's arrival order)
+        mesh_stats = exchange.flush() if exchange is not None else None
 
         # phase 4 — ship the aggregated fleet frames, one per endpoint
         frames = frame_members = 0
@@ -687,6 +773,23 @@ class Fleet:
             self._egress_tree_batched += n_tree_batched
             self._egress_frames += frames
             self._egress_frame_members += frame_members
+            if mesh_stats is not None:
+                self._mesh_intra_entries += mesh_stats["intra_entries"]
+                self._mesh_fallback_entries += mesh_stats["fallback_entries"]
+                self._mesh_permuted_bytes += mesh_stats["permuted_bytes"]
+                self._mesh_exchanges += mesh_stats["exchanges"]
+        if mesh_stats is not None and telemetry.has_handlers(telemetry.MESH_EXCHANGE):
+            telemetry.execute(
+                telemetry.MESH_EXCHANGE,
+                {
+                    "intra_entries": mesh_stats["intra_entries"],
+                    "fallback_entries": mesh_stats["fallback_entries"],
+                    "permuted_bytes": mesh_stats["permuted_bytes"],
+                    "exchanges": mesh_stats["exchanges"],
+                    "shards": self._mesh_shards,
+                },
+                {"fleet": id(self)},
+            )
         if telemetry.has_handlers(telemetry.FLEET_EGRESS):
             telemetry.execute(
                 telemetry.FLEET_EGRESS,
@@ -731,9 +834,16 @@ class Fleet:
                 slots[k] = rep.self_slot
                 gids[k] = _i64(rep.node_id)
                 lo[k] = job.lo
-            sl, tiers = model.fleet_extract_own_delta(stacked, put(rows), put(slots), put(gids), put(lo))
-        else:
+            if self._mesh is None:
+                sl, tiers = model.fleet_extract_own_delta(stacked, put(rows), put(slots), put(gids), put(lo))
+            else:
+                sl, tiers = model.mesh_fleet_extract_own_delta(
+                    self._mesh, stacked, put(rows), put(slots), put(gids), put(lo)
+                )
+        elif self._mesh is None:
             sl, tiers = model.fleet_extract_rows(stacked, put(rows))
+        else:
+            sl, tiers = model.mesh_fleet_extract_rows(self._mesh, stacked, put(rows))
         host = _TR_EGRESS_EXTRACT.get(sl)  # one transfer for the whole bucket
         for k, (_rep, _st, job) in enumerate(items):
             extracted[id(job)] = _lane_slice(host, k, job.rows, None if tiers is None else tiers[k])
@@ -879,7 +989,24 @@ class Fleet:
                 "fallbacks": dict(self._fallbacks),
                 "stack_cache": {"hits": self._stack_hits, "misses": self._stack_misses},
                 "egress": self._egress_stats_held(),
+                "mesh": self._mesh_stats_held(),
             }
+
+    def _mesh_stats_held(self) -> dict:
+        """Mesh-mode observability (caller holds the fleet lock): the
+        shard layout, intra-mesh against fallback deliveries, permuted
+        bytes, exchanges, and the device topology read at construction
+        (so every stats consumer says what hardware it ran on)."""
+        return {
+            "enabled": self._mesh is not None,
+            "shards": self._mesh_shards if self._mesh is not None else 0,
+            "members_per_shard": self._mesh_members_per_shard,
+            "intra_entries": self._mesh_intra_entries,
+            "fallback_entries": self._mesh_fallback_entries,
+            "permuted_bytes": self._mesh_permuted_bytes,
+            "exchanges": self._mesh_exchanges,
+            "topology": self._mesh_topology,
+        }
 
     def _egress_stats_held(self) -> dict:
         """Batched-egress observability (caller holds the fleet lock)."""

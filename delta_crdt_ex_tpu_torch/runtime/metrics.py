@@ -35,10 +35,8 @@ This module is the aggregation layer on top of the port's events:
   varz / health source tables the HTTP endpoint serves.
 
 The metric families are the JAX package's, names, help texts and label
-sets alike, less those whose events the port does not emit: the
-compile-cache family (``crdt_jit_compiles_total``; the port compiles
-nothing per shape) and the mesh family (``crdt_mesh_*``), which comes
-with its slice.
+sets alike, less the compile-cache family (``crdt_jit_compiles_total``),
+whose event the port does not emit: it compiles nothing per shape.
 
 Metric naming scheme: every name is ``crdt_<noun>[_<unit>]`` with the
 Prometheus conventions — ``_total`` counters, ``_seconds`` / ``_bytes``
@@ -568,6 +566,25 @@ class MetricsBridge:
             "crdt_fleet_egress_seconds",
             "Batched egress tick wall time", ("fleet",),
         )
+        self.mesh_exchanges = c(
+            "crdt_mesh_exchanges_total",
+            "Intra-mesh ppermute exchange dispatches", ("fleet",),
+        )
+        self.mesh_intra_entries = c(
+            "crdt_mesh_intra_entries_total",
+            "Sync-tick entries delivered through the intra-mesh plane",
+            ("fleet",),
+        )
+        self.mesh_fallback_entries = c(
+            "crdt_mesh_fallback_entries_total",
+            "Sync-tick entries that fell back to the host/TCP path",
+            ("fleet",),
+        )
+        self.mesh_permuted_bytes = c(
+            "crdt_mesh_permuted_bytes_total",
+            "Bytes moved by intra-mesh ppermute rotations (padded buffers)",
+            ("fleet",),
+        )
         # serving plane: admission/shed/read accounting — the front
         # door's client-facing counterpart of the ingest
         # coalescing family (one SERVE_ADMIT per grouped commit, one
@@ -708,6 +725,7 @@ class MetricsBridge:
             (telemetry.CATCHUP_DONE, self._on_catchup_done),
             (telemetry.FLEET_DISPATCH, self._on_fleet_dispatch),
             (telemetry.FLEET_EGRESS, self._on_fleet_egress),
+            (telemetry.MESH_EXCHANGE, self._on_mesh_exchange),
             (telemetry.TRANSFER, self._on_transfer),
             (telemetry.FAULT_TRIP, self._on_fault_trip),
             (telemetry.SERVE_ADMIT, self._on_serve_admit),
@@ -863,6 +881,15 @@ class MetricsBridge:
             self.fleet_egress_frames._inc_held(lb, g("frames", 0))
             self.fleet_egress_frame_members._inc_held(lb, g("frame_members", 0))
             self.fleet_egress_seconds._observe_held(lb, g("duration_s", 0.0))
+
+    def _on_mesh_exchange(self, _event, meas, meta) -> None:
+        lb = (self._s(meta.get("fleet")),)
+        g = meas.get
+        with self._lock:
+            self.mesh_exchanges._inc_held(lb, g("exchanges", 0))
+            self.mesh_intra_entries._inc_held(lb, g("intra_entries", 0))
+            self.mesh_fallback_entries._inc_held(lb, g("fallback_entries", 0))
+            self.mesh_permuted_bytes._inc_held(lb, g("permuted_bytes", 0))
 
     def _on_transfer(self, _event, meas, meta) -> None:
         lb = (self._s(meta.get("site")),)
@@ -1267,6 +1294,15 @@ class Observability:
             "1 while the serving front door is shedding (0 healthy)",
             ("name",),
         )
+        self._g_mesh_shards = g(
+            "crdt_mesh_shards",
+            "Mesh shard count of a mesh-mode fleet (0 = vmap mode)",
+            ("fleet",),
+        )
+        self._g_mesh_mps = g(
+            "crdt_mesh_members_per_shard",
+            "Mean fleet members per mesh shard", ("fleet",),
+        )
         # transfer-ledger audit, collector-fed (an idle process pays
         # nothing between scrapes): each scrape re-publishes every
         # audited site's absolute crossing/byte totals through TRANSFER
@@ -1438,6 +1474,9 @@ class Observability:
             self._g_fleet_egress_mpf.set(eg["members_per_frame"], fleet_lb)
             self._g_fleet_egress_fpt.set(eg["frames_per_tick"], fleet_lb)
             self._g_fleet_egress_occ.set(eg["avg_bucket_occupancy"], fleet_lb)
+            mesh = st["mesh"]
+            self._g_mesh_shards.set(mesh["shards"], fleet_lb)
+            self._g_mesh_mps.set(mesh["members_per_shard"], fleet_lb)
 
         fleet._obs_collector = collect
         self.registry.register_collector(collect)
@@ -1457,7 +1496,7 @@ class Observability:
         for gauge in (
             self._g_fleet_occupancy, self._g_fleet_fill, self._g_fleet_ticks,
             self._g_fleet_egress_mpf, self._g_fleet_egress_fpt,
-            self._g_fleet_egress_occ,
+            self._g_fleet_egress_occ, self._g_mesh_shards, self._g_mesh_mps,
         ):
             # same contract as unregister_replica: a stopped fleet must
             # not scrape as a stale last value forever

@@ -69,10 +69,19 @@ carries, line for line the JAX replica's semantics:
   sync tick); a ``Down`` re-parents, and past ``tree_degrade_ratio``
   locally down members it gossips flat.
 
-The replica accepts every option the JAX replica accepts. Sync slices
-always travel on the host plane (numpy ``EntriesMsg`` bodies in the JAX
-package's dtypes), so the wire stays the JAX package's and every one of
-them may coalesce.
+- the device data plane: a replica PINNED to a device — ``device=``
+  given with an explicit index (``"cuda:0"``, ``torch.device("cuda",
+  1)``, ``"cpu:0"``) — receives its sync slices as tensor bodies placed
+  straight on that device (``replica.slice_place``; a peer copy between
+  cards, nothing on one card); the sender builds one body per distinct
+  pinned device among a fan-out's peers. A bare ``"cuda"`` / ``"cpu"``
+  is not pinned, and an unpinned receiver (the default) gets the host
+  plane: numpy bodies in the JAX package's dtypes, so the wire stays the
+  JAX package's and every one of them may coalesce. A tensor body
+  merges per slice (it never joins a coalesced group, as in the JAX
+  package) and is logged in the JAX dtypes.
+
+The replica accepts every option the JAX replica accepts.
 """
 
 from __future__ import annotations
@@ -110,6 +119,7 @@ from delta_crdt_ex_tpu_torch.runtime.transport import (
 )
 from delta_crdt_ex_tpu_torch.runtime.wal import ReplayClock, WalLog
 from delta_crdt_ex_tpu_torch.utils import transfers
+from delta_crdt_ex_tpu_torch.utils.devices import Sharded, tree_map
 from delta_crdt_ex_tpu_torch.utils.faults import faultpoint
 from delta_crdt_ex_tpu_torch.utils.hashing import (
     key_hash64,
@@ -136,6 +146,7 @@ _TR_CANONICAL_STATE = transfers.register("replica.canonical_state")
 _TR_OWN_CTR_CACHE = transfers.register("replica.own_ctr_cache")
 _TR_SLICE_PAYLOAD_DOTS = transfers.register("replica.slice_payload_dots")
 _TR_SLICE_WIRE = transfers.register("replica.slice_wire")
+_TR_SLICE_PLACE = transfers.register("replica.slice_place")
 _TR_WAL_ENTRIES = transfers.register("replica.wal_entries")
 _TR_GC_SCAN = transfers.register("replica.gc_scan")
 _TR_DRAIN_ACCOUNTING = transfers.register("replica.drain_accounting")
@@ -324,6 +335,13 @@ class Replica:
             raise ValueError(f"{max_sync_size!r} is not a valid max_sync_size")
 
         self.device = resolve_device(device)
+        #: the device this replica is PINNED to: the one given with an
+        #: explicit index (``"cuda:0"``), else None. Peers place sync
+        #: slices for a pinned replica straight on its device (the device
+        #: data plane); an unpinned one gets the host plane. A bare
+        #: ``"cuda"`` keeps the host plane, as the JAX replica's
+        #: ``device=None`` does
+        self.pinned_device = self.device if torch.device(device).index is not None else None
         self.model = crdt_module
         self.name = name if name is not None else f"crdt-{secrets.token_hex(6)}"
         self.sync_interval = sync_interval
@@ -676,7 +694,17 @@ class Replica:
         ``replica.wal_entries``."""
         if isinstance(a["key"], np.ndarray):
             return {c: np.asarray(v) for c, v in a.items()}
-        return wire_from_host(_TR_WAL_ENTRIES.get(a))
+        got = _TR_WAL_ENTRIES.get({c: v for c, v in a.items() if c != "rows"})
+        out = {}
+        for c, v in a.items():
+            if c == "rows":
+                out[c] = np.asarray(v)  # host control metadata, as it came
+                continue
+            out[c] = wire_from_host({c: got[c]})[c]
+            # read-only, as the JAX package's device_get copies are (the
+            # record's pickled bytes follow the flag)
+            out[c].flags.writeable = False
+        return out
 
     def _durable(self, record_fn: Callable[[], dict]) -> None:
         """One durability point per applied batch/slice: with a WAL an
@@ -881,7 +909,11 @@ class Replica:
         with self._lock:
             if self._state is None:
                 stacked, lane = self._fleet_src
-                self._state = transition.index_state(stacked, lane)
+                state = transition.index_state(stacked, lane)
+                if isinstance(stacked, Sharded):
+                    # a mesh fleet's lane lives on its shard's device
+                    state = tree_map(lambda t: t.to(self.device), state)
+                self._state = state
                 self._fleet_src = None
             return self._state
 
@@ -1637,14 +1669,15 @@ class Replica:
         advance their cursors on successful sends — the emission tail of
         the solo and the fleet egress paths (caller holds the lock).
         ``sl`` is on the device (solo) or already on the host (fleet)."""
-        arrays, payloads = self._slice_wire(sl, job.rows)
+        peers = [p[0] for p in job.peers] if job.kind == "delta" else list(job.peers)
+        bodies, payloads = self._slice_bodies(sl, job.rows, peers)
         buckets = job.pending.astype(np.int64)
         send = self.transport.send if send is None else send
         for p in job.peers:
             n = p[0] if job.kind == "delta" else p
             msg = sync_proto.EntriesMsg(
                 originator=self.addr, frm=self.addr, to=n,
-                buckets=buckets, arrays=arrays, payloads=payloads,
+                buckets=buckets, arrays=bodies[n], payloads=payloads,
             )
             if send(n, msg):
                 if job.kind == "delta":
@@ -1891,10 +1924,13 @@ class Replica:
             send = self.transport.send if send is None else send
             emitted: list[dict] = []
             for batch, peers in groups.items():
-                arrays, payloads = self._extract_rows_wire(np.asarray(batch, np.int64))
+                rows = self._wire_rows(np.asarray(batch, np.int64))
+                sl = self.model.extract_rows(self.state, self._i64_tensor(rows))
+                bodies, payloads = self._slice_bodies(sl, rows, peers)
                 buckets = np.asarray(batch, np.int64)
-                tx = sum(int(v.nbytes) for v in arrays.values() if hasattr(v, "nbytes"))
                 for a in peers:
+                    arrays = bodies[a]
+                    tx = sum(int(v.nbytes) for v in arrays.values() if hasattr(v, "nbytes"))
                     msg = sync_proto.EntriesMsg(
                         originator=self.addr, frm=self.addr, to=a,
                         buckets=buckets, arrays=arrays, payloads=payloads,
@@ -2099,10 +2135,10 @@ class Replica:
             ),
         )
 
-    def _slice_wire(self, sl, rows: np.ndarray) -> tuple[dict, dict]:
-        """Host-plane wire form of a RowSlice: the EntriesMsg column dict
-        (JAX dtypes, context rows for exactly the shipped buckets) plus
-        the payload dict of every alive dot in the slice."""
+    def _slice_payload_host(self, sl, rows: np.ndarray) -> tuple[dict, dict]:
+        """Host copies (wire dtypes) of the slice columns the payload pass
+        reads, and the payload dict of every alive dot in the slice —
+        needed on every plane: the key and value terms live on the host."""
         node_h, ctr_h, alive_h, gid_h = _TR_SLICE_PAYLOAD_DOTS.get(
             (sl.node, sl.ctr, sl.alive, sl.ctx_gid)
         )
@@ -2113,32 +2149,85 @@ class Replica:
         ctr_l = host["ctr"][u_idx, b_idx].tolist()
         pay = self._payloads
         payloads = {dot: pay[dot] for dot in zip(gid_l, row_l, ctr_l)}
+        return host, payloads
 
+    def _slice_arrays(self, sl, host: dict, target_device, rows: np.ndarray) -> dict:
+        """The EntriesMsg column dict for one data plane:
+
+        - ``target_device=None`` — the host plane: numpy columns in the
+          JAX dtypes (pickleable for any transport), reusing the copies
+          the payload pass made;
+        - a pinned device — the device plane: the columns placed on the
+          receiver's device in one audited put (``replica.slice_place``),
+          tensors in the port's layout; nothing crosses the host.
+        """
         names = (*_SLICE_COLUMNS, "ctx_rows", "ctx_lo", "ctx_gid")
-        got = wire_from_host(
-            _TR_SLICE_WIRE.get({c: getattr(sl, c) for c in names if c not in host})
-        )
-        arrays = {c: host[c] if c in host else got[c] for c in names}
-        for a in arrays.values():
-            # read-only, as the JAX package's device_get copies are: a
-            # WAL record pickles a read-only array as bytes and a
-            # writable one as a bytearray, so this keeps a receiver's
-            # records byte-identical whichever package sent the slice
-            a.flags.writeable = False
+        if target_device is None:
+            got = wire_from_host(
+                _TR_SLICE_WIRE.get({c: getattr(sl, c) for c in names if c not in host})
+            )
+            arrays = {c: host[c] if c in host else got[c] for c in names}
+            for a in arrays.values():
+                # read-only, as the JAX package's device_get copies are: a
+                # WAL record pickles a read-only array as bytes and a
+                # writable one as a bytearray, so this keeps a receiver's
+                # records byte-identical whichever package sent the slice
+                a.flags.writeable = False
+        else:
+            placed = _TR_SLICE_PLACE.put({c: getattr(sl, c) for c in names}, target_device)
+            # sorted column order, as the JAX package's device_put of a
+            # dict hands it back: a WAL record pickles dict order
+            arrays = {c: placed[c] for c in sorted(placed)}
         arrays["rows"] = rows  # row indices are control metadata: numpy
-        return arrays, payloads
+        return arrays
 
-    def _extract_rows_wire(self, buckets: np.ndarray) -> tuple[dict, dict]:
-        """Extract the given bucket rows as one wire-tier-padded entries
-        body — THE row-transfer shape, shared by walk transfers and
-        log-shipping chunks so the padding cannot drift between them."""
+    def _slice_wire(self, sl, rows: np.ndarray, target_device=None) -> tuple[dict, dict]:
+        """Single-plane wire form of a RowSlice: the column arrays
+        (context rows for exactly the shipped buckets) plus the payload
+        dict."""
+        host, payloads = self._slice_payload_host(sl, rows)
+        return self._slice_arrays(sl, host, target_device, rows), payloads
+
+    def _slice_bodies(self, sl, rows: np.ndarray, peers) -> tuple[dict, dict]:
+        """Fan-out wire bodies: ONE column dict per distinct pinned device
+        among ``peers`` (None = the host plane), shared payloads — a
+        fan-out over devices and unpinned peers builds one body a device
+        plus one host body, not one a peer. Returns ``({peer: arrays},
+        payloads)``."""
+        host, payloads = self._slice_payload_host(sl, rows)
+        groups: dict[Any, list] = {}
+        for n in peers:
+            groups.setdefault(self._device_of(n), []).append(n)
+        by_peer: dict[Any, dict] = {}
+        for dev, members in groups.items():
+            arrays = self._slice_arrays(sl, host, dev, rows)
+            for n in members:
+                by_peer[n] = arrays
+        return by_peer, payloads
+
+    @staticmethod
+    def _wire_rows(buckets: np.ndarray) -> np.ndarray:
+        """Bucket rows padded with -1 to the wire tier (THE row-transfer
+        shape of walk transfers, relay re-emissions and catch-up)."""
         rows = np.full(_wire(max(len(buckets), 1)), -1, np.int32)
         rows[: len(buckets)] = np.asarray(buckets, np.int32)
+        return rows
+
+    def _extract_rows_wire(self, buckets: np.ndarray, device=None) -> tuple[dict, dict]:
+        """Extract the given bucket rows as one wire-tier-padded entries
+        body for ``device``'s data plane — shared by walk transfers and
+        log-shipping chunks so the padding cannot drift between them."""
+        rows = self._wire_rows(buckets)
         sl = self.model.extract_rows(self.state, self._i64_tensor(rows))
-        return self._slice_wire(sl, rows)
+        return self._slice_wire(sl, rows, device)
+
+    def _device_of(self, peer):
+        """The pinned device of ``peer`` (None: the host plane)."""
+        device_of = getattr(self.transport, "device_of", None)
+        return device_of(peer) if device_of is not None else None
 
     def _send_entries(self, to, buckets: np.ndarray, originator) -> bool:
-        arrays, payloads = self._extract_rows_wire(buckets)
+        arrays, payloads = self._extract_rows_wire(buckets, self._device_of(to))
         return self.transport.send(
             to,
             sync_proto.EntriesMsg(
@@ -2235,7 +2324,7 @@ class Replica:
                     "buckets": int(len(msg.buckets)),
                     "entries": len(msg.payloads),
                 },
-                {"name": self.name, "plane": "host"},
+                {"name": self.name, "plane": "host" if isinstance(a["key"], np.ndarray) else "device"},
             )
         n_ins, n_kill = _TR_INGEST_COUNTS.get((res.n_inserted, res.n_killed))
         self._gc_pressure += int(n_kill)
@@ -2392,15 +2481,16 @@ class Replica:
             seq_hi = int(rec["seq"])
         return n_rec, touched, seq_hi, more, barrier_seq
 
-    def _extract_catchup_slices(self, rows_sorted: np.ndarray) -> list:
-        """Full-row entry slices for the touched buckets: one slice a
-        chunk, split only when a record (a ``clear``) pushed the chunk
-        past the row budget."""
+    def _extract_catchup_slices(self, rows_sorted: np.ndarray, device) -> list:
+        """Full-row entry slices for the touched buckets, on the peer's
+        data plane like every other entries transfer: one slice a chunk,
+        split only when a record (a ``clear``) pushed the chunk past the
+        row budget."""
         limit = self.catchup_chunk_rows
         slices = []
         for s in range(0, len(rows_sorted), limit):
             part = np.asarray(rows_sorted[s : s + limit], np.int64)
-            arrays, payloads = self._extract_rows_wire(part)
+            arrays, payloads = self._extract_rows_wire(part, device)
             slices.append({"buckets": part, "arrays": arrays, "payloads": payloads})
         return slices
 
@@ -2442,7 +2532,7 @@ class Replica:
             # AT the barrier — the walk covers through it, log shipping
             # resumes after it
             clamped, horizon, more = True, barrier_seq, barrier_seq < hi
-        slices = self._extract_catchup_slices(np.sort(np.fromiter(touched, np.int64)))
+        slices = self._extract_catchup_slices(np.sort(np.fromiter(touched, np.int64)), self._device_of(peer))
         sent = self.transport.send(
             peer,
             sync_proto.LogChunkMsg(

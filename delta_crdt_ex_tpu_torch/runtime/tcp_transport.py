@@ -557,12 +557,13 @@ class TcpTransport:
             return addr in self._owners
 
     def device_of(self, addr: Hashable):
-        """The torch device of a same-process replica; None for a remote
-        address (cross-host slices serialise on the host plane)."""
+        """The pinned device of a same-process replica; None for an
+        unpinned one and for a remote address (cross-host slices
+        serialise on the host plane)."""
         if self._is_remote(addr):
             return None
         with self._lock:
-            return getattr(self._owners.get(self._local_name(addr)), "device", None)
+            return getattr(self._owners.get(self._local_name(addr)), "pinned_device", None)
 
     def _local_name(self, addr):
         # a remote-style address pointing at ourselves resolves locally

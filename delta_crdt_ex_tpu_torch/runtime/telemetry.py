@@ -5,10 +5,9 @@ The reference fires ``[:delta_crdt, :sync, :done]`` with
 local ops and remote deltas alike (``causal_crdt.ex:396-398``). Same
 contract here, plus the capacity-growth, sync-round, ingress-coalescing,
 WAL, log-shipping catch-up, fleet dispatch/egress, serving-plane,
-tree-gossip relay/topology, transfer-ledger and fault-trip events,
-under the same attach/execute API. The mesh event comes with its
-slice; ``JIT_COMPILE`` has no counterpart (the port compiles nothing
-per shape).
+tree-gossip relay/topology, mesh-exchange, transfer-ledger and
+fault-trip events, under the same attach/execute API. ``JIT_COMPILE``
+has no counterpart (the port compiles nothing per shape).
 
 The PyTorch port's own copy of ``delta_crdt_ex_tpu/runtime/telemetry.py``
 (the port imports nothing of the JAX package).
@@ -31,6 +30,7 @@ CATCHUP_CHUNK = ("delta_crdt", "catchup", "chunk")  # measurements: records, row
 CATCHUP_DONE = ("delta_crdt", "catchup", "done")  # measurements: chunks, duration_s, horizon_fallback; metadata: name, peer
 FLEET_DISPATCH = ("delta_crdt", "fleet", "dispatch")  # measurements: replicas, lanes, messages, rows, padded_rows, duration_s; metadata: fleet
 FLEET_EGRESS = ("delta_crdt", "fleet", "egress")  # measurements: members, jobs_batched, jobs_solo, dispatches, frames, frame_members, duration_s; metadata: fleet
+MESH_EXCHANGE = ("delta_crdt", "mesh", "exchange")  # measurements: intra_entries, fallback_entries, permuted_bytes, exchanges, shards; metadata: fleet
 SERVE_ADMIT = ("delta_crdt", "serve", "admit")  # measurements: ops, duration_s; metadata: name
 SERVE_SHED = ("delta_crdt", "serve", "shed")  # measurements: ops; metadata: name, reason
 SERVE_READ = ("delta_crdt", "serve", "read")  # measurements: reads, retries, duration_s; metadata: name, mode ("keys"|"full"|"scan")

@@ -71,12 +71,13 @@ class LocalTransport:
             return addr in self._owners
 
     def device_of(self, addr: Hashable):
-        """The torch device the replica behind ``addr`` keeps its state
-        on (None when unknown). The port's sync slices travel on the
-        host plane whatever this says; it is the transport interface's
-        answer for callers that place data per peer."""
+        """The device the replica behind ``addr`` is PINNED to (None when
+        unpinned or unknown). Senders place sync slices straight on a
+        pinned receiver's device — the device data plane; in-process
+        messages pass by reference, so a tensor body never takes a host
+        round trip."""
         with self._lock:
-            return getattr(self._owners.get(addr), "device", None)
+            return getattr(self._owners.get(addr), "pinned_device", None)
 
     def send(self, addr: Hashable, msg: Any) -> bool:
         with self._lock:

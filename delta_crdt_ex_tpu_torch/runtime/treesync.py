@@ -66,16 +66,13 @@ def group_of(transport, addr: Hashable) -> "tuple | None":
     2. the remote process endpoint of a TCP canonical address
        (``(name, (host, port))``): co-located members cluster so only
        their captain gossips across processes;
-    3. ``None``: the member is its own singleton group.
-
-    The JAX package has one more rule between the last two: members
-    pinned to one device cluster there, because they share its device
-    data plane. The port has no pinned-device notion and no device data
-    plane yet (``ROADMAP.md`` queue 1, item 9), and a port replica's
-    ``device`` is always set, so that rule would put every replica on
-    one card into ONE group. It is left out: an unpinned JAX replica
-    (``device=None``) sees no device either, so both packages derive the
-    same tree for the same members.
+    3. the pinned device (``transport.device_of``): co-device members
+       ride the device data plane between each other. Only a replica
+       pinned with an explicit device index has one, as only a JAX
+       replica given ``device=`` does; the key is
+       ``("device", repr(torch_device))``, and the device groups of one
+       device type sort among themselves as the JAX package's do;
+    4. ``None``: the member is its own singleton group.
     """
     owners = getattr(transport, "_owners", None)
     if owners is not None:
@@ -93,6 +90,11 @@ def group_of(transport, addr: Hashable) -> "tuple | None":
         and len(addr[1]) == 2
     ):
         return ("endpoint", tuple(addr[1]))
+    device_of = getattr(transport, "device_of", None)
+    if device_of is not None:
+        dev = device_of(addr)
+        if dev is not None:
+            return ("device", repr(dev))
     return None
 
 

@@ -19,29 +19,46 @@ import threading
 import numpy as np
 import torch
 
+from delta_crdt_ex_tpu_torch.utils.devices import ReplicaSharding, Sharded, tree_map
+
 _lock = threading.Lock()
 #: site label -> TransferSite (insertion = module import order)
 _sites: dict[str, "TransferSite"] = {}
 
 
+#: the array leaves of a transferred tree
+_LEAVES = (torch.Tensor, np.ndarray, Sharded)
+
+
 def _map(fn, value):
-    """Apply ``fn`` to every tensor leaf of a tuple/list/dict tree
-    (NamedTuples keep their type); other leaves pass through."""
-    if isinstance(value, torch.Tensor):
-        return fn(value)
-    if isinstance(value, tuple):
-        out = [_map(fn, v) for v in value]
-        return type(value)(*out) if hasattr(value, "_fields") else tuple(out)
-    if isinstance(value, list):
-        return [_map(fn, v) for v in value]
-    if isinstance(value, dict):
-        return {k: _map(fn, v) for k, v in value.items()}
-    return value
+    """Apply ``fn`` to every array leaf (a tensor, a numpy array, a
+    mesh-sharded value) of a tree of tuples, lists, dicts and store
+    dataclasses (NamedTuples and stores keep their type); other leaves
+    pass through."""
+    return tree_map(fn, value, _LEAVES)
+
+
+def gathered(value):
+    """``value`` with every mesh-sharded leaf concatenated on the host in
+    shard order (one read of every block)."""
+    return _map(lambda v: v.gather("cpu") if isinstance(v, Sharded) else v, value)
+
+
+def device_layout(a: np.ndarray) -> torch.Tensor:
+    """A host column as a tensor of the port's device layout: uint64 as
+    its int64 bits, uint32 widened to int64, everything else as it is
+    (a column already in that layout passes unchanged)."""
+    a = np.asarray(a)
+    if a.dtype == np.uint64:
+        a = np.ascontiguousarray(a).view(np.int64)
+    elif a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def _tensors(value) -> list:
     found: list = []
-    _map(lambda t: found.append(t) or t, value)
+    _map(lambda t: found.append(t) if isinstance(t, torch.Tensor) else None, value)
     return found
 
 
@@ -68,10 +85,34 @@ class TransferSite:
         Host leaves pass through, and a tree of host leaves only (a
         slice the fleet already fetched) crosses nothing and counts
         nothing."""
+        value = gathered(value)
         tensors = _tensors(value)
         if tensors:
             self.note(sum(t.numel() * t.element_size() for t in tensors))
-        return _map(lambda t: t.detach().cpu().numpy(), value)
+        return _map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, value)
+
+    def put(self, value, device):
+        """Audited host→device (or device→device) placement: one counted
+        crossing for the whole tree, as the JAX ``put`` counts it, bytes
+        of every array leaf. Numpy leaves become tensors of the device
+        layout (:func:`device_layout`); ``device`` is a torch device or
+        a :class:`~delta_crdt_ex_tpu_torch.utils.devices.ReplicaSharding`
+        (the tree is then block-split over its mesh)."""
+        n_bytes = 0
+
+        def leaf(v):
+            nonlocal n_bytes
+            if isinstance(v, np.ndarray):
+                n_bytes += v.nbytes
+                return device_layout(v)
+            n_bytes += v.numel() * v.element_size()
+            return v
+
+        value = _map(leaf, value)
+        self.note(n_bytes)
+        if isinstance(device, ReplicaSharding):
+            return device.put(value)
+        return _map(lambda t: t.to(device, non_blocking=True), value)
 
 
 def register(label: str) -> TransferSite:

@@ -5,13 +5,13 @@ package's:
   histograms, get-or-create, label arity, render escaping, collectors,
   snapshots) as one parametrised test;
 - the bridge's table covers exactly the port's ``declared_events()``;
-  the JAX package declares two more, listed here as the known
-  difference (compile-cache, mesh);
+  the JAX package declares one more, listed here as the known
+  difference (compile-cache);
 - the flight recorder's ring and drop accounting, the lag tracer's
   sampling and matching;
 - plane parity: one deterministic three-replica script under ``obs=``
   in each package gives equal metric family names and label sets (apart
-  from the listed compile-cache and mesh families), equal
+  from the listed compile-cache family), equal
   event-counting counters and histogram counts, the same flight-recorder
   event kinds in the same order, and equal lag-tracer peers and counts;
 - ``obs=None`` pays nothing: no recorder, no tracer, no handlers.
@@ -48,13 +48,12 @@ from delta_crdt_ex_tpu_torch.runtime.metrics import (
 from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
 from delta_crdt_ex_tpu_torch.utils import probe_tables
 
-#: the JAX events (and their metric families) the port does not emit:
-#: no per-shape compiles, no mesh fleet yet
+#: the JAX event (and its metric family) the port does not emit: no
+#: per-shape compiles
 JAX_ONLY_EVENTS = {
     ("delta_crdt", "jit", "compile"),
-    ("delta_crdt", "mesh", "exchange"),
 }
-JAX_ONLY_FAMILY_PREFIXES = ("crdt_jit_", "crdt_mesh_")
+JAX_ONLY_FAMILY_PREFIXES = ("crdt_jit_",)
 
 
 @pytest.fixture(autouse=True)
@@ -493,7 +492,7 @@ def test_plane_parity_with_jax(tmp_path):
     (sj, fj, lj, cj), (st, ft, lt, ct) = _plane_script("jax", tmp_path), _plane_script("torch", tmp_path)
     assert ct == cj
     jax_families = {k for k in sj if not k.startswith(JAX_ONLY_FAMILY_PREFIXES)}
-    assert set(st) == jax_families, "metric families differ beyond the listed jit/mesh families"
+    assert set(st) == jax_families, "metric families differ beyond the listed jit family"
     for name in sorted(jax_families):
         kind = sj[name]["type"]
         assert st[name]["type"] == kind, name

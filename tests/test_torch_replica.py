@@ -158,6 +158,10 @@ def test_port_imports_no_jax():
         "import delta_crdt_ex_tpu_torch.runtime.treesync\n"
         "import delta_crdt_ex_tpu_torch.ops.packed, delta_crdt_ex_tpu_torch.native, delta_crdt_ex_tpu_torch.parallel\n"
         "from delta_crdt_ex_tpu_torch.parallel import fanout_merge_packed, pack_states\n"
+        "import delta_crdt_ex_tpu_torch.utils.devices, delta_crdt_ex_tpu_torch.runtime.meshplane\n"
+        "import delta_crdt_ex_tpu_torch.parallel.mesh_gossip\n"
+        "from delta_crdt_ex_tpu_torch.parallel import gossip_delta_step, gossip_delta_drive, gossip_train_step\n"
+        "from delta_crdt_ex_tpu_torch.parallel import make_mesh, place_states, snapshot_mesh, restore_mesh\n"
         "from delta_crdt_ex_tpu_torch import Frontdoor, FleetFrontdoor, Observability, ObsServer, Overloaded, frontdoor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'delta_crdt_ex_tpu'))\n"
         "print(bad)\n"
@@ -288,19 +292,28 @@ def _fleet_call(t, method):
         fleet.stop()
 
 
+def _mesh_fleet(t, store):
+    fleet = tdc.start_fleet(2, threaded=False, transport=t, device="cpu", store=store, capacity=64, tree_depth=4,
+                            mesh=True)
+    try:
+        return fleet.stats()["mesh"]["enabled"]
+    finally:
+        fleet.stop()
+
+
 @pytest.mark.parametrize(
     "call, match",
     [
-        (lambda t: tdc.start_fleet(2, threaded=False, transport=t, device="cpu", mesh=True), "multi-device mesh"),
-        # the serving and observability slice's fleet calls now succeed
-        # (match None: the call's result must be truthy; the cases keep
-        # the ids they had while these calls raised)
+        # the mesh and the serving and observability slices' fleet calls
+        # now succeed (match None: the call's result must be truthy; the
+        # cases keep the ids they had while these calls raised)
+        pytest.param(lambda t: _mesh_fleet(t, None), None, id="<lambda>-multi-device mesh0"),
         pytest.param(_fleet_obs, None, id="<lambda>-serving and observability0"),
         pytest.param(lambda t: type(_fleet_call(t, "frontdoor")).__name__ == "FleetFrontdoor", None,
                      id="<lambda>-serving and observability1"),
         pytest.param(lambda t: _fleet_call(t, "health")["ok"], None, id="<lambda>-serving and observability2"),
         (lambda t: transition.fleet_hash_row_apply(None, None, None, None, None, None, None), "hash-store fleet mutation"),
-        (lambda t: tdc.HashAWLWWMap.mesh_fleet_merge_rows(None, None, None), "multi-device mesh"),
+        pytest.param(lambda t: _mesh_fleet(t, "hash"), None, id="<lambda>-multi-device mesh1"),
     ],
 )
 def test_unported_fleet_options_raise(call, match):

@@ -359,11 +359,15 @@ def test_msgb_roundtrip_property():
 def test_device_of_local_vs_remote(transports):
     ta, tb = transports(2)
     a = _mk(ta, LogicalClock(), "a")
-    assert ta.device_of("a") == a.device
-    assert ta.device_of(("a", ta.endpoint)) == a.device  # self-remote resolves local
-    assert ta.device_of(("a", tb.endpoint)) is None  # genuinely remote
-    assert tb.device_of(("a", ta.endpoint)) is None
+    p = tdc.start_link(tdc.AWLWWMap, threaded=False, transport=ta, clock=LogicalClock(), name="p",
+                       capacity=64, tree_depth=6, device="cpu:0")
+    assert ta.device_of("a") is None  # unpinned: the host plane
+    assert ta.device_of("p") == p.pinned_device == p.device
+    assert ta.device_of(("p", ta.endpoint)) == p.device  # self-remote resolves local
+    assert ta.device_of(("p", tb.endpoint)) is None  # genuinely remote
+    assert tb.device_of(("p", ta.endpoint)) is None
     a.transport.unregister(a.name)
+    p.transport.unregister(p.name)
 
 
 # ---------------------------------------------------------------------------

@@ -167,18 +167,17 @@ def test_group_of_endpoint_owner_and_fleet_key():
 
 
 def test_port_replicas_on_one_device_are_not_one_group():
-    """The JAX package's third ``group_of`` rule clusters members pinned
-    to one device. Port replicas always carry a device, so a verbatim
-    copy would make every replica on the CPU here (or on one card) ONE
-    tier-0 group under one captain; the port's rule sees no device, and
-    the same member names give the JAX package's epoch, parents and
-    tiers."""
+    """The third ``group_of`` rule clusters members pinned to one
+    device. Port replicas always carry a device, but only one given
+    with an explicit index is pinned: replicas on a bare ``"cpu"`` (or
+    ``"cuda"``) are not one tier-0 group under one captain, and the same
+    member names give the JAX package's epoch, parents and tiers."""
     views = {}
     for pkg in ("jax", "torch"):
         t, reps = mk_universe(pkg, 12, tree=True, tree_fanout=3, tree_seed=11)
         mod = treesync if pkg == "torch" else j_ts
         assert all(mod.group_of(t, r.addr) is None for r in reps), pkg
-        assert t.device_of(reps[0].addr) is not None if pkg == "torch" else True
+        assert t.device_of(reps[0].addr) is None
         topo = reps[0]._tree_refresh()
         assert topo.depth >= 2 and len(topo.children[topo.root]) == 3  # no 11-child captain
         assert {r._tree_refresh().epoch for r in reps} == {topo.epoch}
