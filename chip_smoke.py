@@ -2,7 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``delta_crdt_ex_tpu_torch``) on
 one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # the full run: phases 1-12
+    python3 chip_smoke.py                 # the full run: phases 1-13
     python3 chip_smoke.py --keys 131072   # phases 3, 3b, 8a, 8b, 9a, 9b, 10a and 10b at a cut key count
     python3 chip_smoke.py --only 3b       # the build and phase 3b alone (no result lines)
     python3 chip_smoke.py --only 45       # the build, phase 4 and phases 5 and 5p (no result lines)
@@ -12,6 +12,7 @@ one NVIDIA GPU.
     python3 chip_smoke.py --only 10       # the build, phases 3 and 3b (the pairs phase 10 serves from) and phase 10
     python3 chip_smoke.py --only 11       # the build and phase 11 alone (no result lines)
     python3 chip_smoke.py --only 12       # the build and phase 12 alone (no result lines)
+    python3 chip_smoke.py --only 13       # the build and phase 13 alone (no result lines)
 
 Phases (each raises on failure; any failure exits nonzero):
 
@@ -278,6 +279,27 @@ Phases (each raises on failure; any failure exits nonzero):
    beside a pair on a bare ``"cuda"`` on the host plane. 12e, 12a at 2
    shards on ``cuda:0`` and ``cuda:1`` when the host has two cards;
    otherwise one line says only one card was present.
+13. conformance on the card, run right after phase 12. 13a, a
+   Horde-style registry (``examples/torch_registry.py`` at deployment
+   size) on each store in turn, the hash store first: three threaded
+   nodes on ``cuda`` (sync_interval 20 ms) register 2^16 names through
+   ``mutate_batch``, a third from each node, each value ``(node, pid)``;
+   1024 of them are registered again on two nodes at once and every
+   node converges to one LWW winner; every name is looked up on every
+   node through ``read_keys`` in batches of 2048; node b crashes and a
+   survivor removes its names with ``mutate_batch("remove", ...)``.
+   Both survivors read the dict oracle and hold equal canonical bytes;
+   on the hash store every probe launch of the leg (the lookups) is
+   held bit-equal to its plain version on the node's own table, and the
+   launches are the ``kernels`` line's ``"registry"`` path. 13b, the
+   history of ``tests/test_soak.py``'s ``_run_soak`` (this script's own
+   copy) at 6 replicas × 300 ops: seed 31 on the binned store, seed 32
+   on the hash store with every other replica pinned to ``cuda:0``,
+   checked against the dict oracle at every heal; past ``RUN_GUARD_S``
+   it draws no more ops and logs the cut. 13c,
+   ``examples/torch_quickstart.py`` and ``examples/torch_registry.py``
+   as subprocesses on the card, started together when 13b starts and
+   running beside it; each must exit 0.
 
 Metrics print on their own lines, then the seconds each phase took, then each kernel's launches ×
 (kernel time − bound) by timed shape; the line before the last is the
@@ -4614,6 +4636,343 @@ def phase_mesh(device_name: str, base=None, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: conformance on the card — the registry at deployment size,
+# the seeded soak, the examples
+
+#: 13a: a Horde-style registry of 3 nodes (``examples/torch_registry.py``
+#: at deployment size): names registered, a third from each node; names
+#: registered concurrently on two nodes; lookups a batch
+REGISTRY_NODES = ("a", "b", "c")
+REGISTRY_NAMES = 1 << 16
+REGISTRY_CONTESTED = 1024
+REGISTRY_BATCH = 2048
+REGISTRY_BUDGET_S = 300.0
+#: 13b: ``tests/test_soak.py``'s history, replicas x ops, one entry a
+#: seed: (seed, store, every other replica pinned to the card)
+SOAK_REPLICAS = 6
+SOAK_OPS = 300
+SOAK_RUNS = ((31, None, False), (32, "hash", True))
+#: 13c: the examples run as subprocesses on the card
+EXAMPLES = ("examples/torch_quickstart.py", "examples/torch_registry.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def registry_leg(store, device_name: str, device: str = "cuda") -> dict:
+    """13a on one store: three threaded nodes (sync_interval 20 ms)
+    register ``REGISTRY_NAMES`` names through ``mutate_batch``, a third
+    from each node, each value ``(node, pid)``; ``REGISTRY_CONTESTED`` of
+    them are registered again on nodes a and c at once, from two threads
+    (neither has seen the other's write) — every node must converge to
+    one LWW winner. Lookups of every name through ``read_keys`` on each
+    node, ``REGISTRY_BATCH`` names a call. Then node b crashes and node a
+    removes b's names with ``mutate_batch("remove", ...)``: both
+    survivors read the dict oracle and hold equal canonical bytes, every
+    state column on the card. On the hash store the lookups launch the
+    probe kernel, and every launch is then held bit-equal to its plain
+    version on the node's own table at the Q it launched at."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    tag = store or "binned"
+    t = LocalTransport()
+    nodes = {
+        n: dc.start_link(dc.AWLWWMap, store=store, name=f"reg-{tag}-{n}", transport=t, sync_interval=0.02,
+                         max_sync_size=500, capacity=2 * REGISTRY_NAMES, device=device)
+        for n in REGISTRY_NODES
+    }
+    for me in nodes.values():
+        dc.set_neighbours(me, [r for r in nodes.values() if r is not me])
+    deadline = time.perf_counter() + REGISTRY_BUDGET_S
+    names = [f"svc-{i}" for i in range(REGISTRY_NAMES)]
+    oracle = {name: (REGISTRY_NODES[i % 3], i) for i, name in enumerate(names)}
+    m: dict = {"store": tag, "names": REGISTRY_NAMES, "contested": REGISTRY_CONTESTED}
+    alive = list(REGISTRY_NODES)
+    try:
+        probe_lookup_kernel.reset()  # the registry path's run starts here
+        t0 = time.perf_counter()
+        for n in REGISTRY_NODES:
+            dc.mutate_batch(nodes[n], "add", [[name, v] for name, v in oracle.items() if v[0] == n],
+                            timeout=REGISTRY_BUDGET_S)
+        m["register_s"] = time.perf_counter() - t0
+        contested = names[:REGISTRY_CONTESTED]
+        cand = {name: {("a", 10_000_000 + i), ("c", 20_000_000 + i)} for i, name in enumerate(contested)}
+        writes = {n: [[name, (n, base + i)] for i, name in enumerate(contested)]
+                  for n, base in (("a", 10_000_000), ("c", 20_000_000))}
+        t1 = time.perf_counter()
+        run_threads([lambda n=n: dc.mutate_batch(nodes[n], "add", writes[n], timeout=REGISTRY_BUDGET_S)
+                     for n in writes], REGISTRY_BUDGET_S)
+        wait_equal_canonical(list(nodes.values()), deadline, f"13a {tag}: registration")
+        m["converge_s"] = time.perf_counter() - t1
+        winners = dc.read_keys(nodes["a"], contested)
+        for name in contested:
+            if winners.get(name) not in cand[name]:
+                raise AssertionError(f"13a {tag}: {name} resolved to {winners.get(name)}, not one of {cand[name]}")
+            oracle[name] = winners[name]
+        split = {w[0] for w in winners.values()}
+        lat = []
+        for n in REGISTRY_NODES:
+            for lo in range(0, len(names), REGISTRY_BATCH):
+                batch = names[lo:lo + REGISTRY_BATCH]
+                t2 = time.perf_counter()
+                got = dc.read_keys(nodes[n], batch)
+                lat.append(time.perf_counter() - t2)
+                if got != {k: oracle[k] for k in batch}:
+                    raise AssertionError(f"13a {tag}: node {n}'s lookups differ from the oracle at {lo}")
+        m["lookup_ms"] = pct_ms(lat)
+        m["lookups"] = len(lat)
+        m["launches"] = probe_lookup_kernel.launches
+        m["launches_by_shape"] = probe_shape_launches()
+        with nodes["b"]._lock:
+            table_b = nodes["b"].state
+        dead = [name for name, v in oracle.items() if v[0] == "b"]
+        t3 = time.perf_counter()
+        nodes["b"].crash()  # no goodbye sync: the node just dies
+        alive.remove("b")
+        dc.mutate_batch(nodes["a"], "remove", [[name] for name in dead], timeout=REGISTRY_BUDGET_S)
+        survivors = [nodes[n] for n in alive]
+        canon = wait_equal_canonical(survivors, deadline, f"13a {tag}: cleanup")
+        m["cleanup_s"] = time.perf_counter() - t3
+        for name in dead:
+            del oracle[name]
+        for r in survivors:
+            if r.read() != oracle:
+                raise AssertionError(f"13a {tag}: {r.name}'s read differs from the dict oracle")
+        check_on_card(survivors, device)
+        m["canonical_bytes"] = len(canon)
+        m["dead_names"] = len(dead)
+        if store == "hash":
+            if device == "cuda" and m["launches"] < len(lat):
+                raise AssertionError(f"13a hash: {m['launches']} probe launches for {len(lat)} lookups")
+            qs = sorted({int(k.split("x")[2]) for k in m["launches_by_shape"]})
+            # launches below compare the kernel with its plain version
+            m["table_max_abs_err"] = max(
+                check_main_tables([("reg-hash-b", table_b)], 0, [], extra=names, q_sizes=qs, quiet=True),
+                check_main_tables(survivors, 0, dead, extra=names, q_sizes=qs, quiet=True),
+            )
+        elif m["launches"]:
+            raise AssertionError(f"13a binned: {m['launches']} probe launches on the binned store")
+        log(f"[registry] 13a {tag}: {REGISTRY_NAMES} names on 3 nodes: register_s {m['register_s']:.3f}, "
+            f"{REGISTRY_CONTESTED} contested on a and c, converge_s {m['converge_s']:.3f} (winners from "
+            f"{sorted(split)}, one on every node), lookups of every name on each node in {len(lat)} read_keys "
+            f"calls of {REGISTRY_BATCH}: p50 {m['lookup_ms']['p50_ms']:.3f} ms p99 {m['lookup_ms']['p99_ms']:.3f} ms a "
+            f"batch; node b crashed, {len(dead)} names removed by node a, cleanup_s {m['cleanup_s']:.3f}; both "
+            f"survivors read the oracle, canonical bytes equal ({len(canon)} B); probe launches {m['launches']} "
+            f"by (H, W, Q) {m['launches_by_shape']}"
+            + (", bit-equal to probe_lookup_ref on every node's own table" if store == "hash" else "")
+            + f" on {device_name}")
+        return m
+    finally:
+        for n in alive:
+            nodes[n].stop()
+
+
+def soak_on_card(n_replicas: int, n_ops: int, seed: int, store, pin: bool, device_name: str,
+                 t_start: float, device: str = "cuda") -> dict:
+    """13b: the history of ``tests/test_soak.py``'s ``_run_soak`` (that
+    file imports JAX, so this is the script's own copy): writes, removes,
+    clears, partitions, heals and crash-rehydrates from ``MemoryStorage``
+    on ``n_replicas`` replicas on the card, every other one pinned to
+    ``cuda:0`` when ``pin``; at every heal every replica reads the dict
+    oracle. Past ``RUN_GUARD_S`` it stops drawing ops (the cut is
+    logged) and heals and checks what it has."""
+    import delta_crdt_ex_tpu_torch as dc
+    from delta_crdt_ex_tpu_torch.runtime.clock import LogicalClock
+    from delta_crdt_ex_tpu_torch.runtime.storage import MemoryStorage
+    from delta_crdt_ex_tpu_torch.runtime.transport import LocalTransport
+
+    from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
+
+    rng = np.random.default_rng(seed)
+    transport, clock, storage = LocalTransport(), LogicalClock(), MemoryStorage()
+    pinned = f"{device}:0"
+
+    def mk(i):
+        return dc.start_link(dc.AWLWWMap, store=store, threaded=False, transport=transport, clock=clock,
+                             capacity=256, tree_depth=6, name=f"soak{seed}-{i}", storage_module=storage,
+                             device=pinned if pin and i % 2 == 0 else device)
+
+    def converge(rounds=8):
+        for _ in range(rounds):
+            for r in reps:
+                r.sync_to_all()
+            transport.pump()
+
+    def rewire(partition: set):
+        for i, r in enumerate(reps):
+            side = i in partition
+            r.set_neighbours([x for j, x in enumerate(reps) if x is not r and (j in partition) == side])
+
+    reps = [mk(i) for i in range(n_replicas)]
+    rewire(set())
+    model: dict = {}
+    partitioned: set = set()
+    counts = {"adds": 0, "removes": 0, "clears": 0, "partitions": 0, "heals": 0, "crashes": 0, "checks": 0}
+    t0 = time.perf_counter()
+    ran = n_ops
+    probe_lookup_kernel.reset()
+    try:
+        for step in range(n_ops):
+            if time.perf_counter() - t_start > RUN_GUARD_S:
+                ran = step
+                log(f"[cut] 13b seed {seed}: {ran} of {n_ops} ops, {time.perf_counter() - t_start:.3f} s into the "
+                    f"run (guard {RUN_GUARD_S:.0f} s)")
+                break
+            who = int(rng.integers(0, n_replicas))
+            op = rng.random()
+            key = int(rng.integers(1, 40))
+            if partitioned and op >= 0.62:  # only adds keep the dict exact under a partition
+                op = op * 0.62 if op < 0.86 else op
+            if op < 0.62:
+                val = int(rng.integers(0, 1000))
+                reps[who].mutate("add", [key, val])
+                model[key] = val
+                counts["adds"] += 1
+            elif op < 0.82:
+                converge()  # a remove is dict-exact once the remover saw every dot
+                reps[who].mutate("remove", [key])
+                model.pop(key, None)
+                counts["removes"] += 1
+            elif op < 0.86:
+                converge()
+                reps[who].mutate("clear", [])
+                model.clear()
+                counts["clears"] += 1
+            elif op < 0.92 and not partitioned:
+                k = int(rng.integers(1, n_replicas))
+                partitioned = {int(x) for x in rng.choice(n_replicas, k, replace=False)}
+                rewire(partitioned)
+                counts["partitions"] += 1
+            elif op < 0.96 and partitioned:
+                partitioned = set()
+                rewire(partitioned)
+                counts["heals"] += 1
+            else:
+                victim = int(rng.integers(0, n_replicas))
+                transport.unregister(reps[victim].addr)  # the crash: no goodbye sync
+                reps[victim] = mk(victim)
+                rewire(partitioned)
+                counts["crashes"] += 1
+            if not partitioned and (step % 7 == 0 or step == n_ops - 1):
+                converge()
+                counts["checks"] += 1
+                for i, r in enumerate(reps):
+                    if r.read() != model:
+                        raise AssertionError(f"13b seed {seed}: replica {i} differs from the oracle at step {step}")
+        if partitioned:
+            rewire(set())
+        converge(10)
+        for i, r in enumerate(reps):
+            if r.read() != model:
+                raise AssertionError(f"13b seed {seed}: replica {i} differs from the oracle at the end")
+        canon = {r.canonical_state_bytes() for r in reps}
+        if len(canon) != 1:
+            raise AssertionError(f"13b seed {seed}: the replicas' canonical bytes differ")
+        check_on_card(reps, device)
+        if pin and not all(r.pinned_device is not None for r in reps[::2]):
+            raise AssertionError(f"13b seed {seed}: the even replicas are not pinned")
+        wall = time.perf_counter() - t0
+        launches, by_shape = probe_lookup_kernel.launches, probe_shape_launches()
+        err = 0
+        if launches:
+            # whatever launched the kernel here is held against its plain
+            # version on every replica's final table at the Q it ran at
+            qs = sorted({int(k.split("x")[2]) for k in by_shape})
+            keys = list(range(1, 40))
+            err = check_main_tables(reps, 0, [k for k in keys if k not in model], extra=keys, q_sizes=qs, quiet=True)
+        out = {"seed": seed, "store": store or "binned", "pinned": pin, "replicas": n_replicas, "ops": ran,
+               "ops_drawn": n_ops, "wall_s": wall, "keys": len(model), **counts, "probe_launches": launches,
+               "probe_by_shape": by_shape, "table_max_abs_err": err}
+        log(f"[soak] 13b seed {seed} {store or 'binned'}{' (every other replica on ' + pinned + ')' if pin else ''}: "
+            f"{n_replicas} replicas x {ran} ops in {wall:.3f} s, {json.dumps(counts)}; every replica read the dict "
+            f"oracle at each of {counts['checks']} heals and at the end ({len(model)} keys), canonical bytes equal, "
+            f"every column on the card; probe launches {launches} by (H, W, Q) {by_shape}"
+            + (", bit-equal to probe_lookup_ref on every replica's final table" if launches else "")
+            + f" on {device_name}")
+        return out
+    finally:
+        for r in reps:
+            r.stop()
+        MemoryStorage.clear()
+
+
+def start_examples() -> tuple:
+    """13c: start each example of ``EXAMPLES`` as a subprocess with its
+    default device (the card), all at once; returns ``(t0, procs)``."""
+    here = Path(__file__).resolve().parent
+    procs = {ex: subprocess.Popen([sys.executable, str(here / ex)], cwd=here, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for ex in EXAMPLES}
+    return time.perf_counter(), procs
+
+
+def stop_examples(started: tuple) -> None:
+    for p in started[1].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_examples(started: tuple, device_name: str) -> dict:
+    """Wait for the examples :func:`start_examples` started; each must
+    exit 0 within ``EXAMPLE_TIMEOUT_S`` of the start."""
+    t0, procs = started
+    out = {}
+    try:
+        for ex, p in procs.items():
+            stdout, stderr = p.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+            dt = time.perf_counter() - t0
+            last = (stdout.strip().splitlines() or [""])[-1]
+            if p.returncode != 0:
+                raise AssertionError(f"13c: {ex} exited {p.returncode}: {stderr[-2000:]}")
+            out[ex] = {"rc": p.returncode, "done_after_s": dt, "last_line": last}
+            log(f"[examples] 13c {ex}: exit 0, done {dt:.3f} s after the start: {last!r} on {device_name}")
+    finally:
+        stop_examples(started)
+    return out
+
+
+def phase_conformance(device_name: str, t_start: float, device: str = "cuda") -> dict:
+    """Phase 13: 13a the registry on each store (hash first), 13b the
+    soak at each of ``SOAK_RUNS``, 13c the examples."""
+    from delta_crdt_ex_tpu_torch.ops.roots import batched_roots_kernel
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    legs_s: dict = {}
+    batched_roots_kernel.reset()  # the replica paths fold their trees with torch ops
+    for store in ("hash", None):
+        t1 = time.perf_counter()
+        out[f"13a_{store or 'binned'}"] = registry_leg(store, device_name, device)
+        legs_s[f"13a_{store or 'binned'}"] = time.perf_counter() - t1
+    # 13c's subprocesses start up and run beside 13b (13a's timings are
+    # taken without them)
+    started = start_examples()
+    try:
+        for seed, store, pin in SOAK_RUNS:
+            t1 = time.perf_counter()
+            out[f"13b_{seed}"] = soak_on_card(SOAK_REPLICAS, SOAK_OPS, seed, store, pin, device_name, t_start, device)
+            legs_s[f"13b_{seed}"] = time.perf_counter() - t1
+    except BaseException:
+        stop_examples(started)
+        raise
+    t1 = time.perf_counter()
+    out["13c"] = finish_examples(started, device_name)
+    legs_s["13c_wait_after_13b"] = time.perf_counter() - t1
+    out["roots_launches"] = batched_roots_kernel.launches
+    if out["roots_launches"]:
+        raise AssertionError(f"the roots kernel was launched {out['roots_launches']} times in phase 13")
+    reg = out["13a_hash"]
+    out["launches"] = reg["launches"]
+    out["launches_by_shape"] = reg["launches_by_shape"]
+    out["table_max_abs_err"] = reg["table_max_abs_err"]
+    out["phase_s"] = time.perf_counter() - t0
+    out["legs_s"] = legs_s
+    log(f"[registry] phase 13 {out['phase_s']:.3f} s (by leg {json.dumps({k: round(v, 3) for k, v in legs_s.items()})}); "
+        f"probe launches on the registry path {out['launches']} on {device_name}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keys", type=int, default=1 << 20,
@@ -4648,6 +5007,8 @@ def main() -> int:
     serve_b = lambda reps, t, want: serve_binned(reps, t, want, args.keys, name_power)
     serve_h = lambda reps, logs, want: serve_hash(reps, logs, want, args.keys // 8, name_power)
     if args.only:
+        if "13" in args.only:
+            log("[registry-metrics] " + json.dumps(phase_conformance(name_power, t_start)))
         if "12" in args.only:
             log("[mesh-metrics] " + json.dumps(phase_mesh(name_power)))
         if "11" in args.only:
@@ -4720,6 +5081,9 @@ def main() -> int:
     ms = phase_mesh(name_power, base=base)
     del base
     phase_t["12"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    cf = phase_conformance(name_power, t_start)
+    phase_t["13"] = time.perf_counter() - t_phase
     log("[fanin-metrics] " + json.dumps(f))
     log("[fanin-packed-metrics] " + json.dumps(fp))
     log(f"[fanin-layouts] merges/s columns {f['merges_per_sec']:.3f}, packed_scomp "
@@ -4729,6 +5093,7 @@ def main() -> int:
         f"on {name_power}")
     log("[gossip-metrics] " + json.dumps(g))
     log("[mesh-metrics] " + json.dumps(ms))
+    log("[registry-metrics] " + json.dumps(cf))
     t_phase = time.perf_counter()
     fl = phase_fleet(name_power, t_start, reserve_s=DURABILITY_RESERVE_S + TCP_RESERVE_S + TREE_RESERVE_S)
     phase_t["7"] = time.perf_counter() - t_phase
@@ -4753,7 +5118,8 @@ def main() -> int:
     # each hash-store path's launches were held against the plain
     # version on its own tables at the Q it launched at
     probe["max_abs_err"] = max(probe["max_abs_err"], du["8b"]["table_max_abs_err"], tc["9b"]["table_max_abs_err"],
-                               sv["10b"]["table_max_abs_err"], tr["11b"]["table_max_abs_err"], ms["table_max_abs_err"])
+                               sv["10b"]["table_max_abs_err"], tr["11b"]["table_max_abs_err"], ms["table_max_abs_err"],
+                               cf["table_max_abs_err"])
     probe["launches_by_path"] = {"slice": m["launches"], "fleet": fl["launches"][probe_lookup_kernel.name],
                                  "durability_hash": du["8b"]["probe_launches"],
                                  "tcp_hash": tc["9b"]["launches"][probe_lookup_kernel.name],
@@ -4763,7 +5129,8 @@ def main() -> int:
                                  "serve_fleet": sv["10c"]["launches"][probe_lookup_kernel.name],
                                  "tree_binned": tr["11a"]["launches"][probe_lookup_kernel.name],
                                  "tree_hash": tr["11b"]["launches"],
-                                 "mesh_hash": ms["launches"][probe_lookup_kernel.name]}
+                                 "mesh_hash": ms["launches"][probe_lookup_kernel.name],
+                                 "registry": cf["launches"]}
     probe["launches"] = sum(probe["launches_by_path"].values())
     # the replica paths' launches by the exact shape they ran at, each
     # row's launches and loss from its own shape: the headline rows take
@@ -4774,7 +5141,8 @@ def main() -> int:
         for k, n in du["8b"][when]["probe_by_shape"].items():
             by_shape[k] = by_shape.get(k, 0) + n
     for k, n in (list(tc["9b"]["probe_by_shape"].items()) + list(sv["10b"]["launches_by_shape"].items())
-                 + list(tr["11b"]["probe_by_shape"].items()) + list(ms["probe_by_shape"].items())):
+                 + list(tr["11b"]["probe_by_shape"].items()) + list(ms["probe_by_shape"].items())
+                 + list(cf["launches_by_shape"].items())):
         by_shape[k] = by_shape.get(k, 0) + n
     head_keys = set()
     for row in probe["shapes"]:
@@ -4791,7 +5159,8 @@ def main() -> int:
                                  "fanin_packed_topk": fp["packed_topk"]["launches"], "gossip": g["launches"],
                                  "fleet": fl["launches"][batched_roots_kernel.name], "durability": 0, "tcp": 0,
                                  "serve": 0, "tree": tr["11a"]["launches"][batched_roots_kernel.name],
-                                 "mesh": ms["launches"][batched_roots_kernel.name]}
+                                 "mesh": ms["launches"][batched_roots_kernel.name],
+                                 "registry": cf["roots_launches"]}
     roots["max_abs_err"] = max([roots["max_abs_err"]] + [x["roots_max_abs_err"] for x in fanin_runs])
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"

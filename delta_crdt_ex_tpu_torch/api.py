@@ -24,7 +24,7 @@ from typing import Any
 
 from delta_crdt_ex_tpu_torch.models.binned_map import AWSet, BinnedAWLWWMap
 from delta_crdt_ex_tpu_torch.models.hash_store import HashAWLWWMap, HashAWSet
-from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet
+from delta_crdt_ex_tpu_torch.runtime.fleet import Fleet, start_fleet as start_fleet_over
 from delta_crdt_ex_tpu_torch.runtime.metrics import resolve_obs
 from delta_crdt_ex_tpu_torch.runtime.replica import Replica
 
@@ -177,10 +177,9 @@ def start_fleet(
         if names is not None:
             member["name"] = names[i]
         replicas.append(Replica(crdt_module, obs=obs, **member))
-    fleet = Fleet(replicas, min_batch=min_batch, obs=obs, mesh=mesh, mesh_narrow=mesh_narrow)
-    if threaded:
-        fleet.start()
-    return fleet
+    return start_fleet_over(
+        replicas, threaded=threaded, min_batch=min_batch, obs=obs, mesh=mesh, mesh_narrow=mesh_narrow
+    )
 
 
 def child_spec(opts: dict | None = None) -> dict:

@@ -331,6 +331,7 @@ class HashAWLWWMap:
     #: snapshot columns to and from numpy in the JAX dtypes
     to_numpy = staticmethod(to_numpy)
     from_numpy = staticmethod(from_numpy)
+    Store = HashStore
     new = staticmethod(HashStore.new)
     merge_rows_into = staticmethod(merge_rows_into)
     merge_group_into = staticmethod(merge_group_into)

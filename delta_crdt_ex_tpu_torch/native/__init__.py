@@ -80,6 +80,17 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads on this host (building it at
+    the first call). The hashing functions do not consult this: they
+    raise where it is False."""
+    try:
+        library()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def counts() -> dict:
     """Terms hashed by the library since the last :func:`reset_counts`,
     by function (``hash64``: key ids, ``hash32``: value digests)."""

@@ -1036,3 +1036,15 @@ class Fleet:
                 round(self._egress_frames / self._egress_ticks, 3) if self._egress_ticks else 0.0
             ),
         }
+
+
+def start_fleet(replicas: list, *, threaded: bool = True, **opts) -> Fleet:
+    """Wrap existing unthreaded replicas in a :class:`Fleet` (``opts`` are
+    the Fleet's: ``min_batch``, ``obs``, ``mesh``, ``mesh_narrow``);
+    ``threaded=True`` starts its one shared event loop.
+    :func:`delta_crdt_ex_tpu_torch.api.start_fleet` builds the replicas
+    too."""
+    fleet = Fleet(replicas, **opts)
+    if threaded:
+        fleet.start()
+    return fleet

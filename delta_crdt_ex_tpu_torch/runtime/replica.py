@@ -990,6 +990,11 @@ class Replica:
         else:
             self._pending.append(("clear", None, None))
 
+    def flush(self) -> None:
+        """Apply queued async mutations now (without reading)."""
+        with self._lock:
+            self._flush()
+
     def read(self, timeout: float | None = None) -> "dict | set":
         self._acquire(timeout, "read")
         try:

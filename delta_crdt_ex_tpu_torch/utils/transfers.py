@@ -91,13 +91,14 @@ class TransferSite:
             self.note(sum(t.numel() * t.element_size() for t in tensors))
         return _map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, value)
 
-    def put(self, value, device):
+    def put(self, value, device=None):
         """Audited host→device (or device→device) placement: one counted
         crossing for the whole tree, as the JAX ``put`` counts it, bytes
         of every array leaf. Numpy leaves become tensors of the device
         layout (:func:`device_layout`); ``device`` is a torch device or
         a :class:`~delta_crdt_ex_tpu_torch.utils.devices.ReplicaSharding`
-        (the tree is then block-split over its mesh)."""
+        (the tree is then block-split over its mesh); ``None`` leaves
+        every tensor where it is (numpy leaves on the host)."""
         n_bytes = 0
 
         def leaf(v):
@@ -110,6 +111,8 @@ class TransferSite:
 
         value = _map(leaf, value)
         self.note(n_bytes)
+        if device is None:
+            return value
         if isinstance(device, ReplicaSharding):
             return device.put(value)
         return _map(lambda t: t.to(device, non_blocking=True), value)
@@ -144,6 +147,36 @@ def snapshot() -> dict:
             label: {"count": s.count, "bytes": s.bytes}
             for label, s in sorted(_sites.items())
         }
+
+
+def audited_get(value, site: TransferSite):
+    """Function form of :meth:`TransferSite.get` (for sites threaded
+    through as parameters)."""
+    return site.get(value)
+
+
+def audited_put(value, site: TransferSite, device=None):
+    """Function form of :meth:`TransferSite.put`."""
+    return site.put(value, device)
+
+
+def counts() -> dict:
+    """``{label: crossings}`` for every registered site, in label order."""
+    with _lock:
+        return {label: s.count for label, s in sorted(_sites.items())}
+
+
+def delta(before: dict, after: dict) -> dict:
+    """Per-site ``{label: {"count": Δ, "bytes": Δ}}`` between two
+    :func:`snapshot` images; sites that did not move are omitted."""
+    out: dict = {}
+    for label, cur in after.items():
+        prev = before.get(label, {"count": 0, "bytes": 0})
+        dc = cur["count"] - prev["count"]
+        db = cur["bytes"] - prev["bytes"]
+        if dc or db:
+            out[label] = {"count": dc, "bytes": db}
+    return out
 
 
 def audit() -> dict:
