@@ -34,6 +34,7 @@ from delta_crdt_ex_tpu_torch.ops.binned import (
     merge_slice,
     slice_from_wire,
 )
+from delta_crdt_ex_tpu_torch.runtime import tracing
 
 
 class GroupedBatch:
@@ -139,37 +140,52 @@ def tier_retry_merge(
     overflowing neighbour retiers the whole stack.
 
     Returns ``(new_state, last_result, n_retries)``; raises
-    :class:`CtxGapError` on a non-contiguous delta-interval."""
-    compacted = False
-    retries = 0
-    mi = max_inserts
-    while True:
-        res = merge(state, sl, kill_budget, mi)
-        ok, gap, gid, kill, ins, fill = torch.stack([
-            res.ok.all(), res.need_ctx_gap.any(), res.need_gid_grow.any(),
-            res.need_kill_tier.any(), res.need_ins_tier.any(), res.need_fill_compact.any(),
-        ]).tolist()  # one device sync for every branch below
-        if ok:
-            return res.state, res, retries
-        retries += 1
-        if gap:
-            raise CtxGapError(_CTX_GAP_MSG)
-        if gid:
-            state = state.grow(replica_capacity=state.replica_capacity * 2)
-            if on_grow:
-                on_grow(state)
-        if kill:
-            kill_budget = min(kill_budget * 4, int(sl.rows.shape[0]))
-        if ins:
-            mi = min(mi * 4, int(sl.alive.numel()))
-        if fill:
-            if not compacted:
-                state = compact(state)
-                compacted = True
-            else:
-                state = state.grow(bin_capacity=state.bin_capacity * 2)
-                if on_grow:
-                    on_grow(state)
+    :class:`CtxGapError` on a non-contiguous delta-interval.
+
+    Under a profiler the call is the ``crdt.merge_into`` span, each
+    merge a ``crdt.merge.attempt``, each flag read a ``crdt.merge.flags``
+    and each escalation a ``crdt.merge.grow.*`` or
+    ``crdt.merge.compact`` span (:mod:`~delta_crdt_ex_tpu_torch.runtime.tracing`)."""
+    with tracing.annotate("crdt.merge_into"):
+        compacted = False
+        retries = 0
+        mi = max_inserts
+        while True:
+            with tracing.annotate("crdt.merge.attempt"):
+                res = merge(state, sl, kill_budget, mi)
+            flags = torch.stack([
+                res.ok.all(), res.need_ctx_gap.any(), res.need_gid_grow.any(),
+                res.need_kill_tier.any(), res.need_ins_tier.any(), res.need_fill_compact.any(),
+            ])
+            with tracing.annotate("crdt.merge.flags"):
+                ok, gap, gid, kill, ins, fill = flags.tolist()  # one device sync for every branch below
+            del flags  # not held on the device through a retry's merge
+            if ok:
+                return res.state, res, retries
+            retries += 1
+            if gap:
+                raise CtxGapError(_CTX_GAP_MSG)
+            if gid:
+                with tracing.annotate("crdt.merge.grow.gid"):
+                    state = state.grow(replica_capacity=state.replica_capacity * 2)
+                    if on_grow:
+                        on_grow(state)
+            if kill:
+                with tracing.annotate("crdt.merge.grow.kill"):
+                    kill_budget = min(kill_budget * 4, int(sl.rows.shape[0]))
+            if ins:
+                with tracing.annotate("crdt.merge.grow.ins"):
+                    mi = min(mi * 4, int(sl.alive.numel()))
+            if fill:
+                if not compacted:
+                    with tracing.annotate("crdt.merge.compact"):
+                        state = compact(state)
+                    compacted = True
+                else:
+                    with tracing.annotate("crdt.merge.grow.bins"):
+                        state = state.grow(bin_capacity=state.bin_capacity * 2)
+                        if on_grow:
+                            on_grow(state)
 
 
 def merge_rows_into(state: BinnedStore, sl: RowSlice, on_grow=None):

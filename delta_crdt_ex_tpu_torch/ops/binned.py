@@ -61,6 +61,7 @@ import torch
 from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
+from delta_crdt_ex_tpu_torch.runtime import tracing
 from delta_crdt_ex_tpu_torch.utils.transfers import device_layout
 
 _LONG = torch.int64
@@ -1031,76 +1032,87 @@ def _merge_slice_b(
     lanes = _lanes(n, dev)
     LB = L * B
 
-    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
-    g = _insert_grid(state.fill, v, B)
-    n_inserted = v.ins.sum((-2, -1))
+    # each step is a ``crdt.merge.<step>`` span while a profiler runs
+    span = tracing.annotate
+    with span("crdt.merge.view"):
+        v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
+    with span("crdt.merge.insert_grid"):
+        g = _insert_grid(state.fill, v, B)
 
     # --- insert pass (s2 ∖ c1): element scatters at fill positions
-    if max_inserts is None:
-        need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
-        flat_c = g.flat
-        take = lambda a: a.reshape(n, u * s)
-    else:
-        # the k smallest flat indices in ascending order: the real insert
-        # positions first, padding last (jax.lax.top_k of -flat; flat is
-        # duplicate-free, so the positions are JAX's)
-        k = min(max_inserts, u * s)
-        flat_c, sel = torch.topk(g.flat, k, dim=-1, largest=False, sorted=True)
-        need_ins_tier = n_inserted > k
-        take = lambda a: torch.gather(a.reshape(n, u * s), 1, sel)
+    with span("crdt.merge.insert_select"):
+        n_inserted = v.ins.sum((-2, -1))
+        if max_inserts is None:
+            need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
+            flat_c = g.flat
+            take = lambda a: a.reshape(n, u * s)
+        else:
+            # the k smallest flat indices in ascending order: the real insert
+            # positions first, padding last (jax.lax.top_k of -flat; flat is
+            # duplicate-free, so the positions are JAX's)
+            k = min(max_inserts, u * s)
+            flat_c, sel = torch.topk(g.flat, k, dim=-1, largest=False, sorted=True)
+            need_ins_tier = n_inserted > k
+            take = lambda a: torch.gather(a.reshape(n, u * s), 1, sel)
 
-    key_c, valh_c, ts_c, ctr_c = take(sl.key), take(sl.valh), take(sl.ts), take(sl.ctr)
-    ln_c = take(v.ln_clip)
-    node_c = take(sl.node.clamp(0, rr - 1).to(_LONG))
-    eh_c = entry_hash(key_c, torch.gather(sl.ctx_gid, -1, node_c), ctr_c, ts_c, valh_c)
-    ins_c = flat_c < LB  # real inserts; padding indices drop
-    rows_c = flat_c // B  # >= L (dropped) for padding
-    idx = torch.where(ins_c, flat_c, LB)
+        key_c, valh_c, ts_c, ctr_c = take(sl.key), take(sl.valh), take(sl.ts), take(sl.ctr)
+        ln_c = take(v.ln_clip)
+        node_c = take(sl.node.clamp(0, rr - 1).to(_LONG))
+        eh_c = entry_hash(key_c, torch.gather(sl.ctx_gid, -1, node_c), ctr_c, ts_c, valh_c)
+        ins_c = flat_c < LB  # real inserts; padding indices drop
+        rows_c = flat_c // B  # >= L (dropped) for padding
+        idx = torch.where(ins_c, flat_c, LB)
 
     def put(col, vals):
         e = _ext(col)
         e.scatter_(1, idx, vals.to(col.dtype))
         return e
 
-    key_e, valh_e, ts_e = put(state.key, key_c), put(state.valh, valh_c), put(state.ts, ts_c)
-    node_e, ctr_e, ehash_e = put(state.node, ln_c), put(state.ctr, ctr_c), put(state.ehash, eh_c)
-    alive_e = put(state.alive, ins_c)
-    fill_e, amin_e, amax_e, leaf_e, ctx_e = _insert_aux(
-        state, sl, v, g, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts
-    )
+    with span("crdt.merge.insert_scatter"):
+        key_e, valh_e, ts_e = put(state.key, key_c), put(state.valh, valh_c), put(state.ts, ts_c)
+        node_e, ctr_e, ehash_e = put(state.node, ln_c), put(state.ctr, ctr_c), put(state.ehash, eh_c)
+        alive_e = put(state.alive, ins_c)
+    with span("crdt.merge.insert_aux"):
+        fill_e, amin_e, amax_e, leaf_e, ctx_e = _insert_aux(
+            state, sl, v, g, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts
+        )
 
     # --- kill pass ((s1∩s2) ∪ (s1∖c2)) on the flagged rows
-    kr = _kill_rows(state, v, kill_budget)
+    with span("crdt.merge.kill_rows"):
+        kr = _kill_rows(state, v, kill_budget)
     shape = state.key.shape
-    node2, ctr2 = _unext(node_e, shape), _unext(ctr_e, shape)
-    l_node = node2[lanes, kr.k_rows_clip].to(_LONG)  # [N, KB, B]
-    l_ctr = ctr2[lanes, kr.k_rows_clip]
-    l_alive = _unext(alive_e, shape)[lanes, kr.k_rows_clip] & kr.k_valid[..., None]
-    l_ehash = _unext(ehash_e, shape)[lanes, kr.k_rows_clip]
-    die, surv = _kill_apply(kr, sl, v, l_node, l_ctr, l_alive, l_ehash, leaf_e, amin_e, amax_e)
-    kidx = torch.where(kr.k_valid[..., None], kr.k_rows[..., None] * B + torch.arange(B, device=dev), LB)
-    alive_e.scatter_(1, kidx.reshape(n, -1), surv.reshape(n, -1))
+    with span("crdt.merge.kill_apply"):
+        node2, ctr2 = _unext(node_e, shape), _unext(ctr_e, shape)
+        l_node = node2[lanes, kr.k_rows_clip].to(_LONG)  # [N, KB, B]
+        l_ctr = ctr2[lanes, kr.k_rows_clip]
+        l_alive = _unext(alive_e, shape)[lanes, kr.k_rows_clip] & kr.k_valid[..., None]
+        l_ehash = _unext(ehash_e, shape)[lanes, kr.k_rows_clip]
+        die, surv = _kill_apply(kr, sl, v, l_node, l_ctr, l_alive, l_ehash, leaf_e, amin_e, amax_e)
+        kidx = torch.where(kr.k_valid[..., None], kr.k_rows[..., None] * B + torch.arange(B, device=dev), LB)
+        alive_e.scatter_(1, kidx.reshape(n, -1), surv.reshape(n, -1))
 
-    ok = ~(v.gids.overflow | kr.need_kill_tier | g.need_fill_compact | v.need_ctx_gap | need_ins_tier)
-    small = lambda e, like: _unext(e, like.shape, contiguous=True)
-    new_state = BinnedStore(
-        key=_unext(key_e, shape),
-        valh=_unext(valh_e, shape),
-        ts=_unext(ts_e, shape),
-        node=node2,
-        ctr=ctr2,
-        alive=_unext(alive_e, shape),
-        ehash=_unext(ehash_e, shape),
-        fill=small(fill_e, state.fill),
-        amin=small(amin_e, state.amin),
-        amax=small(amax_e, state.amax),
-        leaf=small(leaf_e, state.leaf) & M32,
-        ctx_gid=v.gids.ctx_gid,
-        ctx_max=small(ctx_e, state.ctx_max),
-    )
+    with span("crdt.merge.assemble"):
+        ok = ~(v.gids.overflow | kr.need_kill_tier | g.need_fill_compact | v.need_ctx_gap | need_ins_tier)
+        small = lambda e, like: _unext(e, like.shape, contiguous=True)
+        new_state = BinnedStore(
+            key=_unext(key_e, shape),
+            valh=_unext(valh_e, shape),
+            ts=_unext(ts_e, shape),
+            node=node2,
+            ctr=ctr2,
+            alive=_unext(alive_e, shape),
+            ehash=_unext(ehash_e, shape),
+            fill=small(fill_e, state.fill),
+            amin=small(amin_e, state.amin),
+            amax=small(amax_e, state.amax),
+            leaf=small(leaf_e, state.leaf) & M32,
+            ctx_gid=v.gids.ctx_gid,
+            ctx_max=small(ctx_e, state.ctx_max),
+        )
+        n_killed = die.sum((-2, -1))
     return MergeResult(
         new_state, ok, v.gids.overflow, kr.need_kill_tier, g.need_fill_compact,
-        v.need_ctx_gap, need_ins_tier, n_inserted, die.sum((-2, -1)),
+        v.need_ctx_gap, need_ins_tier, n_inserted, n_killed,
     )
 
 

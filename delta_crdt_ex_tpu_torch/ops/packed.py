@@ -59,6 +59,7 @@ from delta_crdt_ex_tpu_torch.ops.binned import (
     compact_rows,
     entry_hash,
 )
+from delta_crdt_ex_tpu_torch.runtime import tracing
 
 _LONG = torch.int64
 _PLANES = 8
@@ -241,101 +242,113 @@ def _merge_slice_packed_b(
     lanes = _lanes(n, dev)
     LB = L * B
 
-    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
-    g = _insert_grid(state.fill, v, B)
-    n_inserted = v.ins.sum((-2, -1))
+    # each step is a ``crdt.merge.<step>`` span while a profiler runs,
+    # under the column merge's names
+    span = tracing.annotate
+    with span("crdt.merge.view"):
+        v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
+    with span("crdt.merge.insert_grid"):
+        g = _insert_grid(state.fill, v, B)
 
     # --- insert pass (s2 ∖ c1): one scatter of word records at fill positions
-    if max_inserts is None:
-        need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
-        flat_c = g.flat
-        take = lambda a: a.reshape(n, G)
-    elif scatter_compact and LB + G < 2**31:
-        # top_k-free compaction (ops/packed.py:272): the r-th insert of
-        # the grid in grid order by a cumsum rank. Per lane only the grid
-        # index of each rank is scattered; the payload columns depend on
-        # the slice alone, so they stack once a call ([G, 5], not once a
-        # lane) and each lane gathers its k rows from them.
-        k = min(max_inserts, G)
-        ins_flat = g.flat < LB
-        rank = torch.cumsum(ins_flat.to(_LONG), -1) - 1
-        dest = torch.where(ins_flat & (rank < k), rank, k)  # k: the trash slot, cut off
-        gsel = torch.zeros((n, k + 1), dtype=_LONG, device=dev)
-        gsel.scatter_(1, dest, torch.arange(G, device=dev).expand(n, G))
-        gsel = gsel[:, :k]
-        src = shared if shared is not None else sl
-        planes = torch.stack([src.key, src.valh, src.ts, src.ctr, src.node.clamp(0, rr - 1).to(_LONG)], -1)
-        if shared is not None:
-            pay = planes.reshape(G, 5)[gsel]  # [N, k, 5]
+    with span("crdt.merge.insert_select"):
+        n_inserted = v.ins.sum((-2, -1))
+        if max_inserts is None:
+            need_ins_tier = torch.zeros(n, dtype=torch.bool, device=dev)
+            flat_c = g.flat
+            take = lambda a: a.reshape(n, G)
+        elif scatter_compact and LB + G < 2**31:
+            # top_k-free compaction (ops/packed.py:272): the r-th insert of
+            # the grid in grid order by a cumsum rank. Per lane only the grid
+            # index of each rank is scattered; the payload columns depend on
+            # the slice alone, so they stack once a call ([G, 5], not once a
+            # lane) and each lane gathers its k rows from them.
+            k = min(max_inserts, G)
+            ins_flat = g.flat < LB
+            rank = torch.cumsum(ins_flat.to(_LONG), -1) - 1
+            dest = torch.where(ins_flat & (rank < k), rank, k)  # k: the trash slot, cut off
+            gsel = torch.zeros((n, k + 1), dtype=_LONG, device=dev)
+            gsel.scatter_(1, dest, torch.arange(G, device=dev).expand(n, G))
+            gsel = gsel[:, :k]
+            src = shared if shared is not None else sl
+            planes = torch.stack([src.key, src.valh, src.ts, src.ctr, src.node.clamp(0, rr - 1).to(_LONG)], -1)
+            if shared is not None:
+                pay = planes.reshape(G, 5)[gsel]  # [N, k, 5]
+            else:
+                pay = torch.gather(planes.reshape(n, G, 5), 1, gsel[..., None].expand(n, k, 5))
+            kpos = torch.arange(k, device=dev)
+            real_c = kpos < ins_flat.sum(-1, keepdim=True)
+            flat_c = torch.where(real_c, torch.gather(g.flat, 1, gsel), LB + kpos)
+            key_c, valh_c, ts_c, ctr_c, node_c = pay.unbind(-1)
+            # ln is a lookup of node in the lane's remap table: recomputed on
+            # the k compacted entries (the same values as compacting ln_clip)
+            ln_c = torch.gather(v.gids.remap, 1, node_c).clamp(0, R - 1)
+            need_ins_tier = n_inserted > k
+            take = None
         else:
-            pay = torch.gather(planes.reshape(n, G, 5), 1, gsel[..., None].expand(n, k, 5))
-        kpos = torch.arange(k, device=dev)
-        real_c = kpos < ins_flat.sum(-1, keepdim=True)
-        flat_c = torch.where(real_c, torch.gather(g.flat, 1, gsel), LB + kpos)
-        key_c, valh_c, ts_c, ctr_c, node_c = pay.unbind(-1)
-        # ln is a lookup of node in the lane's remap table: recomputed on
-        # the k compacted entries (the same values as compacting ln_clip)
-        ln_c = torch.gather(v.gids.remap, 1, node_c).clamp(0, R - 1)
-        need_ins_tier = n_inserted > k
-        take = None
-    else:
-        # the k smallest flat indices in ascending order (jax.lax.top_k
-        # of -flat; flat is duplicate-free)
-        k = min(max_inserts, G)
-        flat_c, sel = torch.topk(g.flat, k, dim=-1, largest=False, sorted=True)
-        need_ins_tier = n_inserted > k
-        take = lambda a: torch.gather(a.reshape(n, G), 1, sel)
+            # the k smallest flat indices in ascending order (jax.lax.top_k
+            # of -flat; flat is duplicate-free)
+            k = min(max_inserts, G)
+            flat_c, sel = torch.topk(g.flat, k, dim=-1, largest=False, sorted=True)
+            need_ins_tier = n_inserted > k
+            take = lambda a: torch.gather(a.reshape(n, G), 1, sel)
 
-    if take is not None:  # the scomp branch gathered its columns already
-        key_c, valh_c, ts_c, ctr_c = take(sl.key), take(sl.valh), take(sl.ts), take(sl.ctr)
-        ln_c, node_c = take(v.ln_clip), take(sl.node.clamp(0, rr - 1).to(_LONG))
-    eh_c = entry_hash(key_c, torch.gather(sl.ctx_gid, -1, node_c), ctr_c, ts_c, valh_c)
-    ins_c = flat_c < LB  # real inserts; padding indices drop
-    rows_c = flat_c // B  # >= L (dropped) for padding
-    idx = torch.where(ins_c, flat_c, LB)
+        if take is not None:  # the scomp branch gathered its columns already
+            key_c, valh_c, ts_c, ctr_c = take(sl.key), take(sl.valh), take(sl.ts), take(sl.ctr)
+            ln_c, node_c = take(v.ln_clip), take(sl.node.clamp(0, rr - 1).to(_LONG))
+        eh_c = entry_hash(key_c, torch.gather(sl.ctx_gid, -1, node_c), ctr_c, ts_c, valh_c)
+        ins_c = flat_c < LB  # real inserts; padding indices drop
+        rows_c = flat_c // B  # >= L (dropped) for padding
+        idx = torch.where(ins_c, flat_c, LB)
 
-    words_e = state.words.new_empty((n, LB + 1, _PLANES))
-    words_e[:, :LB] = state.words.reshape(n, LB, _PLANES)
-    vals8 = _records(key_c, ts_c, valh_c, ctr_c, eh_c, _meta(ln_c, ins_c))  # [N, k, 8]
-    words_e.scatter_(1, idx[..., None].expand(*idx.shape, _PLANES), vals8)
-    words2 = words_e[:, :LB].view(n, L, B, _PLANES)
+    with span("crdt.merge.insert_scatter"):
+        words_e = state.words.new_empty((n, LB + 1, _PLANES))
+        words_e[:, :LB] = state.words.reshape(n, LB, _PLANES)
+        vals8 = _records(key_c, ts_c, valh_c, ctr_c, eh_c, _meta(ln_c, ins_c))  # [N, k, 8]
+        words_e.scatter_(1, idx[..., None].expand(*idx.shape, _PLANES), vals8)
+        words2 = words_e[:, :LB].view(n, L, B, _PLANES)
 
-    if fused_aux:
-        fill2, amin_e, amax_e, leaf_e, ctx2 = _fused_aux(state, sl, v, rows_c, ln_c, ctr_c, eh_c, ins_c)
-    else:
-        fill_e, amin_e, amax_e, leaf_e, ctx_e = _insert_aux(
-            state, sl, v, g, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts
-        )
-        fill2 = _unext(fill_e, state.fill.shape, contiguous=True)
-        ctx2 = _unext(ctx_e, state.ctx_max.shape, contiguous=True)
+    with span("crdt.merge.insert_aux"):
+        if fused_aux:
+            fill2, amin_e, amax_e, leaf_e, ctx2 = _fused_aux(state, sl, v, rows_c, ln_c, ctr_c, eh_c, ins_c)
+        else:
+            fill_e, amin_e, amax_e, leaf_e, ctx_e = _insert_aux(
+                state, sl, v, g, rows_c, ln_c, ctr_c, eh_c, ins_c, max_inserts
+            )
+            fill2 = _unext(fill_e, state.fill.shape, contiguous=True)
+            ctx2 = _unext(ctx_e, state.ctx_max.shape, contiguous=True)
 
     # --- kill pass ((s1∩s2) ∪ (s1∖c2)) on the flagged rows, read as word
     # planes; only the meta plane of a flagged row changes
-    kr = _kill_rows(state, v, kill_budget)
-    w_rows = words2[lanes, kr.k_rows_clip]  # [N, KB, B, 8]
-    meta_rows = w_rows[..., _META]
-    l_alive = ((meta_rows >> 16) != 0) & kr.k_valid[..., None]
-    die, surv = _kill_apply(
-        kr, sl, v, (meta_rows & 0xFFFF).to(_LONG), _widen(w_rows[..., 5]), l_alive, _widen(w_rows[..., 6]),
-        leaf_e, amin_e, amax_e,
-    )
-    kidx = torch.where(kr.k_valid[..., None], kr.k_rows[..., None] * B + torch.arange(B, device=dev), LB)
-    words_e[..., _META].scatter_(1, kidx.reshape(n, -1), _meta(meta_rows & 0xFFFF, surv).reshape(n, -1))
+    with span("crdt.merge.kill_rows"):
+        kr = _kill_rows(state, v, kill_budget)
+    with span("crdt.merge.kill_apply"):
+        w_rows = words2[lanes, kr.k_rows_clip]  # [N, KB, B, 8]
+        meta_rows = w_rows[..., _META]
+        l_alive = ((meta_rows >> 16) != 0) & kr.k_valid[..., None]
+        die, surv = _kill_apply(
+            kr, sl, v, (meta_rows & 0xFFFF).to(_LONG), _widen(w_rows[..., 5]), l_alive, _widen(w_rows[..., 6]),
+            leaf_e, amin_e, amax_e,
+        )
+        kidx = torch.where(kr.k_valid[..., None], kr.k_rows[..., None] * B + torch.arange(B, device=dev), LB)
+        words_e[..., _META].scatter_(1, kidx.reshape(n, -1), _meta(meta_rows & 0xFFFF, surv).reshape(n, -1))
 
-    ok = ~(v.gids.overflow | kr.need_kill_tier | g.need_fill_compact | v.need_ctx_gap | need_ins_tier)
-    small = lambda e, like: _unext(e, like.shape, contiguous=True)
-    new_state = PackedStore(
-        words=words2,
-        fill=fill2,
-        amin=small(amin_e, state.amin),
-        amax=small(amax_e, state.amax),
-        leaf=small(leaf_e, state.leaf) & M32,
-        ctx_gid=v.gids.ctx_gid,
-        ctx_max=ctx2,
-    )
+    with span("crdt.merge.assemble"):
+        ok = ~(v.gids.overflow | kr.need_kill_tier | g.need_fill_compact | v.need_ctx_gap | need_ins_tier)
+        small = lambda e, like: _unext(e, like.shape, contiguous=True)
+        new_state = PackedStore(
+            words=words2,
+            fill=fill2,
+            amin=small(amin_e, state.amin),
+            amax=small(amax_e, state.amax),
+            leaf=small(leaf_e, state.leaf) & M32,
+            ctx_gid=v.gids.ctx_gid,
+            ctx_max=ctx2,
+        )
+        n_killed = die.sum((-2, -1))
     return MergeResult(
         new_state, ok, v.gids.overflow, kr.need_kill_tier, g.need_fill_compact,
-        v.need_ctx_gap, need_ins_tier, n_inserted, die.sum((-2, -1)),
+        v.need_ctx_gap, need_ins_tier, n_inserted, n_killed,
     )
 
 

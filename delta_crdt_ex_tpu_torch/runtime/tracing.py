@@ -9,12 +9,35 @@ file). Here:
   ``torch.profiler`` trace (every thread's CPU activity, plus CUDA
   activity when a card is present) written as a Chrome trace into
   ``logdir``;
-- :func:`annotate` — named spans (``torch.profiler.record_function``,
-  inside an NVTX range when CUDA is available) that the replica puts
-  around its flush and merge paths: ``crdt.flush``, ``crdt.merge``,
-  ``crdt.merge_group``;
+- :func:`annotate` — a named span, a ``torch.profiler.record_function``
+  range on the profiler's timeline, the same clock as the device
+  events it launches. It is on only while a torch profiler runs
+  (:func:`trace`, ``crdtbench``'s ``--trace 1`` stretch or any other
+  ``torch.profiler`` session; :func:`enabled`) and otherwise costs one
+  flag check: there is no switch of its own, and no NVTX range (nothing
+  reads one);
 - :func:`profile_mutations` — the fprof analog: ``n`` mutations against
   a replica, optionally under a trace, and the wall-time split.
+
+The spans:
+
+- the replica paths: ``crdt.flush`` (a local batch), ``crdt.merge`` (one
+  received slice), ``crdt.merge_group`` (a coalesced group);
+- the merge entry (``models/binned_map.py:tier_retry_merge``, under
+  every caller: the fan-in, ``merge_into`` and the replica's merges):
+  ``crdt.merge_into`` (the whole call), ``crdt.merge.attempt`` (each
+  merge), ``crdt.merge.flags`` (the one flag read a merge, where the
+  host waits for the device) and one span an escalation:
+  ``crdt.merge.grow.kill``, ``crdt.merge.grow.ins``,
+  ``crdt.merge.grow.gid``, ``crdt.merge.compact``,
+  ``crdt.merge.grow.bins`` (their count in a trace is the retries by
+  reason);
+- the merge body's steps, in ``ops/binned.py``'s column merge and
+  ``ops/packed.py``'s packed one alike: ``crdt.merge.view``,
+  ``crdt.merge.insert_grid``, ``crdt.merge.insert_select``,
+  ``crdt.merge.insert_scatter``, ``crdt.merge.insert_aux``,
+  ``crdt.merge.kill_rows``, ``crdt.merge.kill_apply``,
+  ``crdt.merge.assemble``.
 """
 
 from __future__ import annotations
@@ -25,6 +48,7 @@ import time
 from typing import Any
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: the Chrome trace file :func:`trace` writes into its ``logdir``
 TRACE_FILE = "trace.json"
@@ -56,16 +80,24 @@ def trace(logdir: str, cuda: bool | None = None):
         prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
+#: the span :func:`annotate` gives while no profiler runs (reusable)
+_OFF = contextlib.nullcontext()
+
+
+def enabled() -> bool:
+    """Whether a torch profiler is running, so that spans are recorded.
+    Read at each call: the profiler sets the flag as it starts and
+    clears it as it stops."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def annotate(name: str):
-    """Named span visible in profiler traces (and, on a card, in NVTX);
-    costs a few microseconds when nothing traces."""
-    if torch.cuda.is_available():
-        with torch.cuda.nvtx.range(name), torch.profiler.record_function(name):
-            yield
-    else:
-        with torch.profiler.record_function(name):
-            yield
+    """A named span (a ``torch.profiler.record_function`` range) while a
+    profiler runs; otherwise a no-op context that costs one flag
+    check."""
+    if enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def profile_mutations(crdt, n: int = 1000, logdir: str | None = None) -> dict[str, Any]:
