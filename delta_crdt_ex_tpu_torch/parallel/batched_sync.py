@@ -39,6 +39,7 @@ from delta_crdt_ex_tpu_torch.ops.packed import (
     merge_slice_packed,
     pack,
 )
+from delta_crdt_ex_tpu_torch.parallel import merge_graph
 
 
 def _map_fields(fn, *states):
@@ -124,6 +125,26 @@ def fanout_merge_into(
     (the column kernel has no such variant). ``rows_sorted`` passes
     through.
 
+    On a CUDA column stack each merge attempt and each compaction is one
+    replay of a captured CUDA graph
+    (:mod:`~delta_crdt_ex_tpu_torch.parallel.merge_graph`), bit-equal to
+    the eager merge, and the stack is donated:
+
+    - a stack that this function returned is consumed by the next call
+      that passes it in, and the result comes back in the same device
+      buffers (as a new stack object);
+    - passing an older returned stack again raises ``ValueError``: it is
+      never read stale (a store made from one, such as its ``grow()``,
+      reads what the buffers hold now);
+    - any other stack (the first call's, a caller's own, a grown
+      geometry) is merged eagerly and never written; the result's
+      buffers become the entry's, and the graphs of the stack before
+      are dropped.
+
+    The graphs are chosen by what the call observes: a column stack on a
+    CUDA device. CPU stacks and packed stacks merge eagerly as before,
+    with no donation; there is no switch.
+
     Returns ``(stacked, last_result, n_retries)``."""
     packed = isinstance(stacked, PackedStore)
     if scatter_compact is None:
@@ -136,14 +157,13 @@ def fanout_merge_into(
     _require_stack(stacked, PackedStore if packed else BinnedStore)
     if n_alive is None:
         n_alive = int(sl.alive.sum())
+    max_inserts = pow2_tier(max(n_alive, 1))
     if packed:
         merge = lambda st, s, kb, mi: fanout_merge_packed(st, s, kb, mi, scatter_compact, rows_sorted)
-        compact = compact_rows_packed
-    else:
-        merge, compact = fanout_merge, compact_rows
-    return tier_retry_merge(
-        stacked, sl, merge, compact, kill_budget, pow2_tier(max(n_alive, 1)), on_grow=on_grow
-    )
+        return tier_retry_merge(stacked, sl, merge, compact_rows_packed, kill_budget, max_inserts, on_grow=on_grow)
+    if stacked.device.type == "cuda":
+        return merge_graph.ENTRY.merge_into(stacked, sl, kill_budget, max_inserts, on_grow=on_grow)
+    return tier_retry_merge(stacked, sl, fanout_merge, compact_rows, kill_budget, max_inserts, on_grow=on_grow)
 
 
 def pack_states(stacked: BinnedStore) -> PackedStore:

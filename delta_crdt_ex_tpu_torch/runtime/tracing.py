@@ -31,13 +31,16 @@ The spans:
   ``crdt.merge.grow.kill``, ``crdt.merge.grow.ins``,
   ``crdt.merge.grow.gid``, ``crdt.merge.compact``,
   ``crdt.merge.grow.bins`` (their count in a trace is the retries by
-  reason);
+  reason); on a CUDA column stack, ``crdt.merge.replay`` inside an
+  attempt that replays a captured graph
+  (``parallel/merge_graph.py``);
 - the merge body's steps, in ``ops/binned.py``'s column merge and
   ``ops/packed.py``'s packed one alike: ``crdt.merge.view``,
   ``crdt.merge.insert_grid``, ``crdt.merge.insert_select``,
   ``crdt.merge.insert_scatter``, ``crdt.merge.insert_aux``,
   ``crdt.merge.kill_rows``, ``crdt.merge.kill_apply``,
-  ``crdt.merge.assemble``.
+  ``crdt.merge.assemble`` (recorded where the body runs eagerly: not
+  inside a graph replay, only when its graph is captured).
 """
 
 from __future__ import annotations
