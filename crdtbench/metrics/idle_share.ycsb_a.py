@@ -1,0 +1,8 @@
+"""The share of the traced steps in which no device operation ran, in %
+(100 x (1 - busy / window), from the profiler's trace)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

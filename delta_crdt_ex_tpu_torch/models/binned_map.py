@@ -193,12 +193,16 @@ def merge_rows_into(state: BinnedStore, sl: RowSlice, on_grow=None):
     (:func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_rows`), growing the
     gid table or the bins on overflow (``binned_map.py:184``). Returns
     ``(new_state, last_result)``; raises :class:`CtxGapError` (with
-    ``gap_rows``) on a non-contiguous delta-interval."""
+    ``gap_rows``) on a non-contiguous delta-interval.
+
+    Under a profiler each flag read is a ``crdt.merge.flags`` span and
+    each growth a ``crdt.merge.grow.gid`` or ``crdt.merge.grow.bins``
+    span, as in :func:`tier_retry_merge`."""
     while True:
         res = merge_rows(state, sl)
-        ok, gap, gid, fill = torch.stack(
-            [res.ok, res.need_ctx_gap, res.need_gid_grow, res.need_fill_grow]
-        ).tolist()
+        flags = torch.stack([res.ok, res.need_ctx_gap, res.need_gid_grow, res.need_fill_grow])
+        with tracing.annotate("crdt.merge.flags"):
+            ok, gap, gid, fill = flags.tolist()
         if ok:
             return res.state, res
         if gap:
@@ -206,13 +210,15 @@ def merge_rows_into(state: BinnedStore, sl: RowSlice, on_grow=None):
             err.gap_rows = res.gap_row.cpu().numpy()
             raise err
         if gid:
-            state = state.grow(replica_capacity=state.replica_capacity * 2)
-            if on_grow:
-                on_grow(state)
+            with tracing.annotate("crdt.merge.grow.gid"):
+                state = state.grow(replica_capacity=state.replica_capacity * 2)
+                if on_grow:
+                    on_grow(state)
         if fill:
-            state = state.grow(bin_capacity=state.bin_capacity * 2)
-            if on_grow:
-                on_grow(state)
+            with tracing.annotate("crdt.merge.grow.bins"):
+                state = state.grow(bin_capacity=state.bin_capacity * 2)
+                if on_grow:
+                    on_grow(state)
 
 
 def merge_into(

@@ -312,6 +312,17 @@ def _set_rows(
     return _unext(e, col.shape, contiguous)
 
 
+def _exact(col: torch.Tensor) -> torch.Tensor:
+    """An exact-size copy of a column :func:`_set_rows` returned as a
+    view of its one-element-longer buffer. For the 1 MiB ``alive``
+    column of a 2^20-slot store the longer buffer lands in the caching
+    allocator's large-block pool, where a block a few hundred KiB too
+    big is handed out whole; the exact copy lives in the small-block
+    pool, so a store generation's device bytes do not depend on the
+    allocator's history."""
+    return col.clone()
+
+
 def _slice_view_b(ctx_gid: torch.Tensor, ctx_max: torch.Tensor, sl: RowSlice) -> SliceView:
     """:class:`SliceView` of every lane (``ops/binned.py:462``): remote
     context rows re-expressed in local slots, the insert mask, and
@@ -667,7 +678,7 @@ def _row_apply_b(state: BinnedStore, self_slot, rows, op, key, valh, ts) -> RowA
     rs = rows_safe
     new_state = BinnedStore(
         **{c: _set_rows(getattr(state, c), rs, packed[c]) for c in _ROW_COLS},
-        alive=_set_rows(state.alive, rs, alive_p),
+        alive=_exact(_set_rows(state.alive, rs, alive_p)),
         fill=_set_rows(state.fill, rs, fill_rows, True),
         amin=_set_rows(state.amin, rs, _row_amin(packed["node"], packed["ctr"], alive_p, R), True),
         amax=_set_rows(state.amax, rs, _row_amax(packed["node"], packed["ctr"], alive_p, R), True),
@@ -813,14 +824,16 @@ class MergeRowsResult(NamedTuple):
     gap_row: torch.Tensor  # bool[U]
 
 
-def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
-    n, L, B = state.key.shape
-    R = state.replica_capacity
+def _merge_rows_packed(state: BinnedStore, sl: RowSlice, v: SliceView, lanes: torch.Tensor):
+    """The row-local part of :func:`_merge_rows_b`: ``(packed cols,
+    packed alive, alive per row, kills per row)``, each B wide. Its
+    transients (the gathered rows, the ``[U, B, B]`` presence test, the
+    2B-wide pack) die with this frame, before the new generation's
+    columns are allocated: while three generations of a store are live,
+    a merge holds only its B-wide rows, whatever the slice's size."""
+    n, _L, B = state.key.shape
     u = sl.key.shape[-2]
     rr = sl.ctx_gid.shape[-1]
-    lanes = _lanes(n, state.device)
-
-    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
     g = _gather_rows(state, lanes, v.rows_clip)  # [N, U, B]
     galive = state.alive[lanes, v.rows_clip] & v.valid[..., None]
     gnode = g["node"].to(_LONG)
@@ -850,14 +863,23 @@ def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
     }
     wide = {c: torch.cat([g[c], ins_cols[c]], dim=-1) for c in _ROW_COLS}
     packed_w, alive_w, n_alive_row = _row_compact(wide, torch.cat([alive_surv, v.ins], dim=-1))
-    packed = {c: x[..., :B] for c, x in packed_w.items()}
-    alive_p = alive_w[..., :B]
+    packed = {c: x[..., :B].contiguous() for c, x in packed_w.items()}
+    return packed, alive_w[..., :B].contiguous(), n_alive_row, die.sum(-1)
+
+
+def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
+    n, L, B = state.key.shape
+    R = state.replica_capacity
+    lanes = _lanes(n, state.device)
+
+    v = _slice_view_b(state.ctx_gid, state.ctx_max, sl)
+    packed, alive_p, n_alive_row, n_kill_row = _merge_rows_packed(state, sl, v, lanes)
     need_fill_grow = (v.valid & (n_alive_row > B)).any(-1)
 
     rs = v.rows_safe
     new_state = BinnedStore(
         **{c: _set_rows(getattr(state, c), rs, packed[c]) for c in _ROW_COLS},
-        alive=_set_rows(state.alive, rs, alive_p),
+        alive=_exact(_set_rows(state.alive, rs, alive_p)),
         fill=_set_rows(state.fill, rs, n_alive_row.clamp(max=B), True),
         amin=_set_rows(state.amin, rs, _row_amin(packed["node"], packed["ctr"], alive_p, R), True),
         amax=_set_rows(state.amax, rs, _row_amax(packed["node"], packed["ctr"], alive_p, R), True),
@@ -867,7 +889,6 @@ def _merge_rows_b(state: BinnedStore, sl: RowSlice) -> MergeRowsResult:
     )
     ok = ~(v.gids.overflow | need_fill_grow | v.need_ctx_gap)
     n_ins_row = v.ins.sum(-1)
-    n_kill_row = die.sum(-1)
     return MergeRowsResult(
         new_state, ok, v.gids.overflow, need_fill_grow, v.need_ctx_gap,
         n_ins_row.sum(-1), n_kill_row.sum(-1), n_ins_row, n_kill_row, v.gap_row,

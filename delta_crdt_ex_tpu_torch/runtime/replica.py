@@ -562,6 +562,13 @@ class Replica:
         self._relay_tx_bytes = 0
         self._relay_rx_bytes = 0
         self._relay_depth_hist: dict[int, int] = {}
+        #: anti-entropy counters (``stats()["sync"]``): sync rounds (one
+        #: a tick a neighbour), rounds whose push was cut at
+        #: ``max_sync_size`` buckets, and alive entries shipped in push
+        #: and walk transfers
+        self._sync_rounds = 0
+        self._sync_capped = 0
+        self._sync_keys_sent = 0
         self._tree: _LazyLevels | None = None
         #: full-read result cache, maintained incrementally by local
         #: flushes while complete; ``_read_cache_kh`` maps each cached
@@ -1466,32 +1473,34 @@ class Replica:
         """Reference emission rules (``causal_crdt.ex:344-381``):
         telemetry counts dot-level changes; the callback compares read
         values, so no-op re-adds are silent and a ``None`` value emits a
-        remove diff."""
-        internal_changed = 0
-        diffs = []
-        mask = self.num_buckets - 1
-        for kh, term in touched.items():
-            b, a = before.get(kh), after.get(kh)
-            if b != a:
-                internal_changed += 1
-            old_rec = self._payloads.get((b[0], kh & mask, b[1])) if b else None
-            new_rec = self._payloads.get((a[0], kh & mask, a[1])) if a else None
-            old_val = old_rec[1] if old_rec else None
-            new_val = new_rec[1] if new_rec else None
-            if old_val == new_val:
-                continue
-            if new_val is None:
-                diffs.append(("remove", term))
-            else:
-                diffs.append(("add", term, new_val))
+        remove diff. Under a profiler the diff computation and the
+        callback are one ``crdt.feed`` span."""
+        with tracing.annotate("crdt.feed"):
+            internal_changed = 0
+            diffs = []
+            mask = self.num_buckets - 1
+            for kh, term in touched.items():
+                b, a = before.get(kh), after.get(kh)
+                if b != a:
+                    internal_changed += 1
+                old_rec = self._payloads.get((b[0], kh & mask, b[1])) if b else None
+                new_rec = self._payloads.get((a[0], kh & mask, a[1])) if a else None
+                old_val = old_rec[1] if old_rec else None
+                new_val = new_rec[1] if new_rec else None
+                if old_val == new_val:
+                    continue
+                if new_val is None:
+                    diffs.append(("remove", term))
+                else:
+                    diffs.append(("add", term, new_val))
 
-        self._note_state_changed(lambda: internal_changed, keep_read_cache)
-        if diffs and self.on_diffs is not None:
-            if isinstance(self.on_diffs, tuple):
-                fn, extra = self.on_diffs
-                fn(*extra, diffs)
-            else:
-                self.on_diffs(diffs)
+            self._note_state_changed(lambda: internal_changed, keep_read_cache)
+            if diffs and self.on_diffs is not None:
+                if isinstance(self.on_diffs, tuple):
+                    fn, extra = self.on_diffs
+                    fn(*extra, diffs)
+                else:
+                    self.on_diffs(diffs)
 
     def _rebuild_read_cache(self) -> dict:
         out, kh_map = self._read_pairs()
@@ -1545,14 +1554,18 @@ class Replica:
     def sync_to_all(self) -> None:
         """One sync round to all monitored neighbours: push own fresh
         deltas, then open the digest-walk round; in tree mode the tick's
-        relay epoch follows."""
+        relay epoch follows. Under a profiler the push and the walks are
+        one ``crdt.sync.round`` span (a tick's push serves every
+        neighbour at one cursor), each push's extraction a
+        ``crdt.sync.extract`` and each opened walk a ``crdt.sync.walk``."""
         with self._lock:
             self._flush()
             if self.tree_gossip:
                 self._tree_probe_down()
             self._monitor_neighbours()
-            self._push_deltas()
-            self._open_walks()
+            with tracing.annotate("crdt.sync.round"):
+                self._push_deltas()
+                self._open_walks()
         # the tick's relay epoch: everything merged since the last flush
         # re-emits as ONE merged slice per tree link (no-op when flat)
         self._relay_flush()
@@ -1565,7 +1578,8 @@ class Replica:
         opened = 0
         for n in list(self._monitors):
             if n != self.addr:
-                opened += bool(self._open_walk(n, send))
+                with tracing.annotate("crdt.sync.walk"):
+                    opened += bool(self._open_walk(n, send))
         if opened:
             self._flight("sync_open", peers=opened, seq=self._seq)
             if self._lag is not None:
@@ -1605,12 +1619,19 @@ class Replica:
         delta-interval slices (Almeida et al.'s delta mode), plus
         full-row slices of kill-touched rows: plan, extract, emit."""
         for job in self._eager_jobs():
-            self._emit_push_job(job, self._extract_push_job(job), send)
+            with tracing.annotate("crdt.sync.extract"):
+                sl = self._extract_push_job(job)
+            self._emit_push_job(job, sl, send)
 
     def _eager_jobs(self) -> list:
+        """Plan one tick's pushes (one sync round a neighbour, counted in
+        ``stats()["sync"]`` with the rounds whose push is cut at
+        ``max_sync_size`` buckets)."""
         jobs: list = []
+        self._sync_rounds += sum(1 for n in self._monitors if n != self.addr)
         if not self.eager_deltas:
             return jobs
+        capped: set = set()
         if self._own_ctr_cache is None:
             self._own_ctr_cache = as_u32(
                 _TR_OWN_CTR_CACHE.get(self.state.ctx_max[:, self.self_slot])
@@ -1632,6 +1653,8 @@ class Replica:
             pending = np.nonzero(own > cur0)[0]
             if len(pending) == 0:
                 continue
+            if len(pending) > limit:
+                capped.update(n for n, _cur in members)
             pending = pending[:limit]
             rows = np.full(_wire(max(len(pending), 1)), -1, np.int32)
             rows[: len(pending)] = pending
@@ -1651,11 +1674,14 @@ class Replica:
             if len(pend) == 0:
                 continue
             order = np.argsort(self._row_touch_seq[pend], kind="stable")
+            if len(pend) > limit:
+                capped.update(members)
             pend = pend[order][:limit]
             new_cursor = int(self._row_touch_seq[pend[-1]])
             rows = np.full(_wire(max(len(pend), 1)), -1, np.int32)
             rows[: len(pend)] = pend
             jobs.append(_PushJob("rows", rows, None, pend, members, new_cursor=new_cursor))
+        self._sync_capped += len(capped)
         return jobs
 
     def _extract_push_job(self, job: _PushJob):
@@ -1685,6 +1711,7 @@ class Replica:
                 buckets=buckets, arrays=bodies[n], payloads=payloads,
             )
             if send(n, msg):
+                self._sync_keys_sent += len(payloads)
                 if job.kind == "delta":
                     p[1][job.pending] = job.advance
                 else:
@@ -2233,7 +2260,7 @@ class Replica:
 
     def _send_entries(self, to, buckets: np.ndarray, originator) -> bool:
         arrays, payloads = self._extract_rows_wire(buckets, self._device_of(to))
-        return self.transport.send(
+        sent = self.transport.send(
             to,
             sync_proto.EntriesMsg(
                 originator=originator,
@@ -2244,6 +2271,9 @@ class Replica:
                 payloads=payloads,
             ),
         )
+        if sent:
+            self._sync_keys_sent += len(payloads)
+        return sent
 
     def _handle_entries(self, msg: sync_proto.EntriesMsg, log_noop: bool = True) -> "int | None":
         with tracing.annotate("crdt.merge"):
@@ -3108,7 +3138,10 @@ class Replica:
         reclaim floor, the segment count and the log horizon; ``tree``
         (only in tree mode) the derived tree's epoch, this replica's
         role, tier and links, and the relay's re-emissions, folds and
-        bytes."""
+        bytes; ``sync`` the anti-entropy rounds (one a tick a
+        neighbour), the rounds whose push was cut at ``max_sync_size``
+        buckets, and the alive entries shipped in push and walk
+        transfers."""
         from delta_crdt_ex_tpu_torch.ops.hash_map import probe_lookup_kernel
 
         with self._lock:
@@ -3128,6 +3161,11 @@ class Replica:
                     "coalesce_depth_hist": dict(sorted(self._coalesce_depths.items())),
                     "gap_fallbacks": self._ingress_gap_fallbacks,
                     "gap_partitions": self._ingress_gap_partitions,
+                },
+                "sync": {
+                    "rounds": self._sync_rounds,
+                    "capped_rounds": self._sync_capped,
+                    "keys_sent": self._sync_keys_sent,
                 },
                 "fleet": {
                     "dispatches": self._fleet_dispatches,

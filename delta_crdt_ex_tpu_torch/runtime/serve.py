@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from delta_crdt_ex_tpu_torch.models.binned import pow4_tier
-from delta_crdt_ex_tpu_torch.runtime import telemetry, transition
+from delta_crdt_ex_tpu_torch.runtime import telemetry, tracing, transition
 from delta_crdt_ex_tpu_torch.utils import transfers
 from delta_crdt_ex_tpu_torch.utils.hashing import key_hash64
 from delta_crdt_ex_tpu_torch.utils.transfers import as_u32, as_u64
@@ -335,11 +335,12 @@ class Frontdoor:
                 return snap
         # materialise outside the lock: index_state reads a published
         # stacked state nothing writes into (a racing duplicate is benign)
-        _version, state, fleet_src, payloads = pub
-        if state is None:
-            stacked, lane = fleet_src
-            state = transition.index_state(stacked, lane)
-        fresh = ReadSnapshot(version, state, self._rep.model, self._rep.num_buckets, payloads)
+        with tracing.annotate("crdt.serve.publish"):
+            _version, state, fleet_src, payloads = pub
+            if state is None:
+                stacked, lane = fleet_src
+                state = transition.index_state(stacked, lane)
+            fresh = ReadSnapshot(version, state, self._rep.model, self._rep.num_buckets, payloads)
         with self._lock:
             cur = self._snap
             if (
@@ -355,38 +356,40 @@ class Frontdoor:
     def _read(self, mode: str, fn, strong_fn) -> Any:
         """Shared retry shell of every snapshot read: bounded
         :class:`StaleSnapshot` retries against fresher generations, then
-        ``strong_fn`` — the classic locked read — as the last resort."""
-        t0 = time.perf_counter()
-        retries = 0
-        strong = False
-        try:
-            for _attempt in range(self.read_retries):
-                snap = self.snapshot()
-                try:
-                    return fn(snap)
-                except StaleSnapshot:
-                    retries += 1
-                    # drop the raced snapshot from the cache (the next
-                    # attempt must rebuild, not re-serve it) and force a
-                    # fresh publication past the raced window
-                    with self._lock:
-                        if self._snap is snap:
-                            self._snap = None
-                    self._rep.publish_read_snapshot()
-            strong = True
-            return strong_fn()
-        finally:
-            with self._lock:
-                self._reads += 1
-                self._read_retries += retries
-                if strong:
-                    self._strong_fallbacks += 1
-            if telemetry.has_handlers(telemetry.SERVE_READ):
-                telemetry.execute(
-                    telemetry.SERVE_READ,
-                    {"reads": 1, "retries": retries, "duration_s": time.perf_counter() - t0},
-                    {"name": self.name, "mode": mode},
-                )
+        ``strong_fn`` — the classic locked read — as the last resort.
+        Under a profiler the whole read is a ``crdt.serve.read`` span."""
+        with tracing.annotate("crdt.serve.read"):
+            t0 = time.perf_counter()
+            retries = 0
+            strong = False
+            try:
+                for _attempt in range(self.read_retries):
+                    snap = self.snapshot()
+                    try:
+                        return fn(snap)
+                    except StaleSnapshot:
+                        retries += 1
+                        # drop the raced snapshot from the cache (the next
+                        # attempt must rebuild, not re-serve it) and force a
+                        # fresh publication past the raced window
+                        with self._lock:
+                            if self._snap is snap:
+                                self._snap = None
+                        self._rep.publish_read_snapshot()
+                strong = True
+                return strong_fn()
+            finally:
+                with self._lock:
+                    self._reads += 1
+                    self._read_retries += retries
+                    if strong:
+                        self._strong_fallbacks += 1
+                if telemetry.has_handlers(telemetry.SERVE_READ):
+                    telemetry.execute(
+                        telemetry.SERVE_READ,
+                        {"reads": 1, "retries": retries, "duration_s": time.perf_counter() - t0},
+                        {"name": self.name, "mode": mode},
+                    )
 
     def read_keys(self, key_terms: list) -> "dict | set":
         """Lock-free consistent point reads (pinned generation)."""
@@ -505,7 +508,8 @@ class Frontdoor:
                 # THE shared grouped-commit entrance (mutate_batch's):
                 # one lock acquisition, one flush, one WAL group commit
                 # for the whole window
-                self._rep.apply_ops([(op.f, op.args) for op in batch])
+                with tracing.annotate("crdt.serve.commit"):
+                    self._rep.apply_ops([(op.f, op.args) for op in batch])
             except BaseException as e:  # noqa: BLE001 — fanned out to the tickets
                 err = e
             dt = time.perf_counter() - t0

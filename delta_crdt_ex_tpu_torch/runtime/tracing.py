@@ -22,7 +22,16 @@ file). Here:
 The spans:
 
 - the replica paths: ``crdt.flush`` (a local batch), ``crdt.merge`` (one
-  received slice), ``crdt.merge_group`` (a coalesced group);
+  received slice), ``crdt.merge_group`` (a coalesced group),
+  ``crdt.feed`` (the ``on_diffs`` diff computation and callback);
+- anti-entropy (``Replica.sync_to_all``): ``crdt.sync.round`` (a tick's
+  push and walks), ``crdt.sync.extract`` (each push's extraction) and
+  ``crdt.sync.walk`` (each opened digest walk) inside it;
+- the serving front door (``runtime/serve.py``): ``crdt.serve.read``
+  (a snapshot read, retries included), ``crdt.serve.publish`` (a
+  publication materialised as a read snapshot) and ``crdt.serve.commit``
+  (an admission group's ``apply_ops``, on the admission worker's
+  thread);
 - the merge entry (``models/binned_map.py:tier_retry_merge``, under
   every caller: the fan-in, ``merge_into`` and the replica's merges):
   ``crdt.merge_into`` (the whole call), ``crdt.merge.attempt`` (each
@@ -31,8 +40,10 @@ The spans:
   ``crdt.merge.grow.kill``, ``crdt.merge.grow.ins``,
   ``crdt.merge.grow.gid``, ``crdt.merge.compact``,
   ``crdt.merge.grow.bins`` (their count in a trace is the retries by
-  reason); on a CUDA column stack, ``crdt.merge.replay`` inside an
-  attempt that replays a captured graph
+  reason; ``merge_rows_into``, the replica's row-granular loop, records
+  ``crdt.merge.flags``, ``crdt.merge.grow.gid`` and
+  ``crdt.merge.grow.bins`` alike); on a CUDA column stack,
+  ``crdt.merge.replay`` inside an attempt that replays a captured graph
   (``parallel/merge_graph.py``);
 - the merge body's steps, in ``ops/binned.py``'s column merge and
   ``ops/packed.py``'s packed one alike: ``crdt.merge.view``,

@@ -36,7 +36,8 @@ _SAMPLE_RE = re.compile(
 )
 _COMMENT_RE = re.compile(r"^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]*( .*)?$")
 #: stats() keys the port's replica has and the JAX replica's has not
-PORT_ONLY_STATS = {"device", "kernel_launches"}
+#: (``sync``: the port's anti-entropy round counters)
+PORT_ONLY_STATS = {"device", "kernel_launches", "sync"}
 
 SMALL = dict(capacity=64, tree_depth=4, sync_timeout=1e9, threaded=False, device="cpu")
 
