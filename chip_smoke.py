@@ -72,7 +72,9 @@ Phases (each raises on failure; any failure exits nonzero):
    fleet counters too); the
    fan-in of phase 5 at ``bench.py``'s smoke geometry (4096 keys,
    L = 2^8, B = 64, 4 neighbours, 4 × 128-entry deltas per call, 1 + 2
-   calls) gives identical stack columns and roots on both, and so does
+   calls; every call ok, each one launch of the merge kernel on
+   ``cuda``) gives identical stack columns, flags, counts and roots on
+   both, and so does
    the same fan-in on the packed layout (``pack_states`` →
    ``fanout_merge_packed`` in scomp and in top_k mode, and
    ``merge_slice_packed_fused``: identical words, aux tables, flags,
@@ -86,12 +88,16 @@ Phases (each raises on failure; any failure exits nonzero):
    ``batched_roots(stack.leaf)`` over 16 × 512-entry interval deltas —
    merges/s as ``bench.py`` computes it (from per-call completion
    intervals, stamped here by CUDA events), per-call device and host
-   enqueue times, the roots kernel's launches (exactly 7) and the
-   device memory after set-up and at its peak; it checks
-   every flag and count, every lane's alive count, the 64 lanes
-   bit-equal, the incremental leaf against ``compact_rows``, the alive
-   key set against the host's, and the final roots against
-   ``batched_roots_ref``;
+   enqueue times, the roots kernel's and the merge kernel's launches
+   (exactly 7 each) and the device memory after set-up and at its peak;
+   it checks every flag and count, every lane's alive count, the 64
+   lanes bit-equal, the incremental leaf against ``compact_rows``, the
+   alive key set against the host's, and the final roots against
+   ``batched_roots_ref``; then the merge kernel (``merge_commit`` on the
+   card) against the plain ``merge_commit_ref`` on copies of the final
+   stack with the spare delta group, where every lane merges and where
+   the insert tier overflows, and its time at that shape (the
+   ``kernels`` line's merge row);
 5p. the same fan-in on the packed layout (``bench.py``'s primary,
    ``packed_scomp``: ``fanout_merge_packed(scatter_compact=True,
    rows_sorted=True)``, then its A/B alternate ``packed_topk``), from
@@ -103,7 +109,8 @@ Phases (each raises on failure; any failure exits nonzero):
    column lane 0, the final roots equal to phase 5's, the roots kernel
    launched 7 times a run and bit-equal to ``batched_roots_ref``;
 6. ring gossip: 8 lanes of that geometry, each first given its own
-   writer's 4096 fresh keys by ``merge_into``, then 7
+   writer's 4096 fresh keys by ``merge_into`` (the merge kernel's
+   launches counted), then 7
    ``ring_gossip_round``s, each followed by the roots; every root and
    every leaf equal at the end, and every lane's content (alive entries
    and context over global writer ids) equal;
@@ -583,13 +590,15 @@ ROOTS_TIMED = [(64, 1 << 14), (8, 1 << 14), (4096, 1 << 14)]
 PROFILE_WINDOWS = 6
 
 
-def kernel_us(fn, flush, name: str, reps: int = 10) -> tuple[float, str]:
+def kernel_us(fn, flush, name, reps: int = 10) -> tuple[float, str]:
     """``(us, method)``: the mean duration of the device kernels whose
     name holds ``name`` over ``reps`` calls of ``fn()`` (``flush()``
     between them), as ``torch.profiler`` (CUPTI) records them: the
     kernel alone, without the launch and event overhead that
-    :func:`time_ms` includes (method ``"profiler"``). When no window
-    records the kernel, the mean by CUDA events (method ``"events"``)."""
+    :func:`time_ms` includes (method ``"profiler"``). ``name`` may be a
+    tuple of names, one kernel each that every call launches once: the
+    us are then their sum a call. When no window records the kernel,
+    the mean by CUDA events (method ``"events"``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,9 +615,10 @@ def kernel_us(fn, flush, name: str, reps: int = 10) -> tuple[float, str]:
                 flush()
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if name in e.key]
-        count = sum(e.count for e in hits)
-        if count:
+        names = (name,) if isinstance(name, str) else tuple(name)
+        hits = [e for e in prof.key_averages() if any(x in e.key for x in names)]
+        count = sum(e.count for e in hits) / len(names)
+        if count and all(any(x in e.key for e in hits) for x in names):
             return sum(e.device_time_total for e in hits) / count, "profiler"
         log(f"[kernel-time] profiling window {window + 1} recorded no {name} kernel")
     log(f"[kernel-time] no profiling window of {PROFILE_WINDOWS} recorded a {name} kernel: timed by CUDA events")
@@ -711,7 +721,8 @@ def kernel_row(kernel, max_err: int, timed: list) -> dict:
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
-        # no single PyTorch call computes the probe grid or the digest-tree fold
+        # no single PyTorch call computes the probe grid, the digest-tree
+        # fold or the merge of a delta slice
         "library_ms": None,
         "shapes": timed,
     }
@@ -1385,8 +1396,19 @@ def phase_cuda_vs_cpu() -> None:
     from delta_crdt_ex_tpu_torch.models.binned import to_numpy
 
     runs = {dev: run_fanin(FANIN_SMOKE, dev, keep_states=True) for dev in ("cuda", "cpu")}
+    want = FANIN_SMOKE["warmup"] + FANIN_SMOKE["calls"]
+    if runs["cuda"]["merge_launches"] != want:
+        raise AssertionError(f"fan-in at the smoke geometry: merge kernel launched {runs['cuda']['merge_launches']} "
+                             f"times on cuda, want {want}")
     calls = 0
-    for (sa, ra), (sb, rb) in zip(runs["cuda"]["per_call"], runs["cpu"]["per_call"]):
+    for (sa, ra), (sb, rb), xa, xb in zip(runs["cuda"]["per_call"], runs["cpu"]["per_call"],
+                                         runs["cuda"]["results"], runs["cpu"]["results"]):
+        # the card commits a lane only where it merged; every call here does
+        if not bool(xa.ok.all()) or not bool(xb.ok.all()):
+            raise AssertionError(f"fan-in call {calls}: merge overflow")
+        for f in xa._fields[1:]:
+            if not np.array_equal(getattr(xa, f).cpu().numpy(), getattr(xb, f).numpy()):
+                raise AssertionError(f"fan-in call {calls}: {f} differs between cuda and cpu")
         ca, cb = to_numpy(sa), to_numpy(sb)
         for c in ca:
             if not np.array_equal(ca[c], cb[c]):
@@ -1394,7 +1416,8 @@ def phase_cuda_vs_cpu() -> None:
         if not np.array_equal(ra.cpu().numpy(), rb.numpy()):
             raise AssertionError(f"fan-in call {calls}: roots differ between cuda and cpu")
         calls += 1
-    log(f"[det] fan-in at the smoke geometry: {calls} calls, stack columns and roots identical on cuda and cpu")
+    log(f"[det] fan-in at the smoke geometry: {calls} calls through the merge kernel ({want} launches), every "
+        f"lane ok; stack columns, flags, counts and roots identical on cuda and cpu")
 
     from delta_crdt_ex_tpu_torch.ops.packed import packed_to_numpy
 
@@ -1574,6 +1597,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False, layout: str = "
     enqueue times, and the host copies of the keys."""
     import torch
 
+    from delta_crdt_ex_tpu_torch.ops.merge_kernel import merge_slice_kernel
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
     from delta_crdt_ex_tpu_torch.parallel.batched_sync import pack_states, stack_states
     from delta_crdt_ex_tpu_torch.utils.synth import build_state, interval_delta_stream
@@ -1615,6 +1639,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False, layout: str = "
         return ev
 
     batched_roots_kernel.reset()  # the fan-in path's run starts here
+    merge_slice_kernel.reset()
     per_call, marks, enqueue_s = [], [], []
     t0 = time.perf_counter()
     for i, sl in enumerate(slices):
@@ -1633,6 +1658,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False, layout: str = "
             marks.append(stamp())
     launches = batched_roots_kernel.launches
     by_shape = dict(batched_roots_kernel.launches_by_shape)
+    merge_launches = merge_slice_kernel.launches
     sync()
     wall_s = time.perf_counter() - t0
     if cuda:
@@ -1643,7 +1669,7 @@ def run_fanin(geo: dict, device: str, keep_states: bool = False, layout: str = "
         "stack": stack, "one": one, "keys": keys, "delta_keys": delta_keys, "slices": slices,
         "spare": spare, "per_call": [(s, r) for s, r, _ in per_call], "results": [x for _, _, x in per_call],
         "call_dts": call_dts, "enqueue_s": enqueue_s, "wall_s": wall_s, "launches": launches,
-        "launches_by_shape": by_shape, "layout": layout, "merge": merge, "roots": roots,
+        "launches_by_shape": by_shape, "merge_launches": merge_launches, "layout": layout, "merge": merge, "roots": roots,
         "setup_s": setup_s, "setup_bytes": setup_bytes, "stack_bytes": entry_bytes(stack),
     }
 
@@ -1704,6 +1730,10 @@ def phase_fanin(device_name: str) -> dict:
     if m["launches"] != geo["warmup"] + geo["calls"]:
         raise AssertionError(f"roots kernel launched {m['launches']} times on the fan-in, want "
                              f"{geo['warmup'] + geo['calls']}")
+    m["merge_launches"] = run["merge_launches"]
+    if m["merge_launches"] != geo["warmup"] + geo["calls"]:
+        raise AssertionError(f"merge kernel launched {m['merge_launches']} times on the fan-in, want "
+                             f"{geo['warmup'] + geo['calls']} (one attempt a call)")
     # launches below compare the kernel with its plain version
     got = batched_roots_kernel(stack.leaf)
     want = batched_roots_ref(stack.leaf)
@@ -1713,7 +1743,8 @@ def phase_fanin(device_name: str) -> dict:
     log(f"[fanin] checks: every ok, {n_delta} inserted and 0 killed per lane and call, {want_alive} "
         f"alive per lane, {geo['N']} lanes bit-equal, leaf == compact_rows(lane 0).leaf, alive keys == "
         f"base ∪ deltas; roots kernel launches on the fan-in {m['launches']}, final roots "
-        f"bit-equal to batched_roots_ref")
+        f"bit-equal to batched_roots_ref; merge kernel launches {m['merge_launches']}")
+    m["merge_kernel"] = merge_kernel_at(stack, run["spare"], n_delta, device_name)
     # one more call, on the next delta group, under the profiler: where a
     # call's device time goes (its result is dropped)
     m["trace"] = trace_call(
@@ -1728,6 +1759,89 @@ def phase_fanin(device_name: str) -> dict:
     m["prior"]["lane0"] = map_columns(lambda x: x[0].clone(), stack)
     m["prior"]["roots"] = run["roots"].clone()
     return m
+
+
+def merge_kernel_at(stack, sl, max_inserts: int, device_name: str, device: str = "cuda") -> dict:
+    """The merge kernel at phase 5's own shape (its ``kernels`` row):
+    ``merge_commit`` on the card (the kernel) held bit-equal to the
+    plain ``merge_commit_ref`` on copies of the final stack with the
+    spare delta group, once where every lane merges (flags, counts and
+    every column) and once where the insert tier overflows (flags and
+    ``n_inserted``; both stores as they were); then one attempt's
+    duration by the profiler (its two kernels), by CUDA events, and the
+    plain version's time, with L2 flushed and the touched rows restored
+    between calls, beside the byte bound of
+    ``crdtbench.roofline.merge_bytes``. On ``device="cpu"`` (a rehearsal:
+    the plain twin on both sides) it times nothing."""
+    import torch
+
+    from crdtbench import roofline
+    from delta_crdt_ex_tpu_torch.models.binned import COLUMNS, map_columns
+    from delta_crdt_ex_tpu_torch.ops.binned import RowSlice, merge_commit, merge_commit_ref, result_buffers
+    from delta_crdt_ex_tpu_torch.ops.merge_kernel import merge_slice_kernel
+
+    n = stack.key.shape[0]
+    sl = RowSlice(*(t.contiguous() for t in sl))
+    same = lambda a, b: all(torch.equal(getattr(a, c), getattr(b, c)) for c in COLUMNS)  # noqa: E731
+    checks, after = [], None
+    for mi, want_ok in ((max_inserts, True), (1, False)):
+        xk, xr = map_columns(torch.clone, stack), map_columns(torch.clone, stack)
+        (fk, ck), (fr, cr) = result_buffers(n, device), result_buffers(n, device)
+        merge_commit(xk, sl, 8, mi, fk, ck)
+        merge_commit_ref(xr, sl, 8, mi, fr, cr)
+        ok = bool(fr[0].all())
+        if ok != want_ok:
+            raise AssertionError(f"merge kernel at phase 5's shape, max_inserts {mi}: ok {ok}, want {want_ok}")
+        if not torch.equal(fk, fr) or not torch.equal(ck[0], cr[0]):
+            raise AssertionError(f"merge kernel at phase 5's shape, max_inserts {mi}: flags or n_inserted differ "
+                                 f"from merge_commit_ref")
+        if ok and (not torch.equal(ck[1], cr[1]) or not same(xk, xr)):
+            raise AssertionError("merge kernel at phase 5's shape: n_killed or the store differs from merge_commit_ref")
+        if not ok and not (same(xk, stack) and same(xr, stack)):
+            raise AssertionError("merge kernel at phase 5's shape: a store was written where not ok")
+        checks.append({"max_inserts": mi, "ok": ok, "n_inserted": int(ck[0, 0])})
+        if ok:
+            after = xk
+        del xk, xr
+    rows = sl.rows[sl.rows >= 0]
+    before_n = stack.alive[0, rows].sum(-1).cpu().numpy().astype(np.int64)
+    after_n = after.alive[0, rows].sum(-1).cpu().numpy().astype(np.int64)
+    nbytes = roofline.merge_bytes(n, before_n, after_n, int(sl.alive.sum()), int(rows.numel()))
+    del after
+    row = {"shape": {"N": n, "L": stack.key.shape[1], "B": stack.key.shape[2], "R": stack.ctx_gid.shape[1],
+                     "U": int(sl.rows.shape[0]), "rows": int(rows.numel()), "S": int(sl.key.shape[-1])},
+           "checks": checks, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[kernel] merge_slice_commit at phase 5's shape {row['shape']}: bit-equal to merge_commit_ref where every "
+        f"lane merges and where the insert tier overflows (store untouched) {checks}")
+    if device == "cpu":
+        return row
+    torch.cuda.empty_cache()
+    x = map_columns(torch.clone, stack)
+    flags, counts = result_buffers(n, "cuda")
+    row_cols = [c for c in COLUMNS if c != "ctx_gid"]
+    saved = {c: getattr(x, c)[:, rows].clone() for c in row_cols}
+    gid = x.ctx_gid.clone()
+    l2 = torch.empty(1 << 27, dtype=torch.uint8, device="cuda")  # 128 MiB > L2
+
+    def flush():
+        for c in row_cols:
+            getattr(x, c)[:, rows] = saved[c]
+        x.ctx_gid.copy_(gid)
+        l2.random_(0, 255)
+
+    kern = lambda: merge_commit(x, sl, 8, max_inserts, flags, counts)  # noqa: E731
+    plain = lambda: merge_commit_ref(x, sl, 8, max_inserts, flags, counts)  # noqa: E731
+    us, method = kernel_us(kern, flush, ("merge_compute", "merge_commit"))
+    row["kernel_ms"], row["kernel_ms_by"] = us / 1e3, method
+    row["ms"], row["host_ms"] = time_ms(kern, 20, flush)
+    row["plain_ms"] = time_ms(plain, 3, flush)[0]
+    del x, saved, l2
+    torch.cuda.empty_cache()
+    log(f"[kernel-time] merge_slice_commit {row['shape']} (L2 flushed and touched rows restored between calls, "
+        f"bound {nbytes} B at 3.35 TB/s): kernel {row['kernel_ms']:.6f} ms by {method} ({row['ms']:.6f} ms by "
+        f"events, host enqueue {row['host_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, bound "
+        f"{row['bound_ms']:.6f} ms, kernel/bound {row['kernel_ms'] / row['bound_ms']:.3f} on {device_name}")
+    return kernel_row(merge_slice_kernel, 0, [row])
 
 
 def phase_fanin_packed(device_name: str, prior: dict) -> dict:
@@ -1885,10 +1999,17 @@ def phase_ring_gossip(base) -> dict:
     from delta_crdt_ex_tpu_torch.ops.roots import batched_roots, batched_roots_kernel
     from delta_crdt_ex_tpu_torch.parallel.batched_sync import ring_gossip_round, stack_states
 
+    from delta_crdt_ex_tpu_torch.ops.merge_kernel import merge_slice_kernel
+
     n, fresh = GOSSIP_LANES, GOSSIP_FRESH
     L = base.num_buckets
+    merge_slice_kernel.reset()  # each lane's merge_into is one or more of its attempts
     stack = stack_states(gossip_lanes(base))
     torch.cuda.synchronize()
+    merge_launches = merge_slice_kernel.launches
+    if merge_launches < n:
+        raise AssertionError(f"ring gossip: the lanes' merges launched the merge kernel {merge_launches} times, "
+                             f"want at least {n}")
     batched_roots_kernel.reset()  # the gossip path's run starts here
     t0 = time.perf_counter()
     for r in range(n - 1):
@@ -1899,7 +2020,7 @@ def phase_ring_gossip(base) -> dict:
         roots = batched_roots(stack.leaf)
     torch.cuda.synchronize()
     m = {"lanes": n, "rounds": n - 1, "round_ms": (time.perf_counter() - t0) / (n - 1) * 1e3,
-         "launches": batched_roots_kernel.launches,
+         "launches": batched_roots_kernel.launches, "merge_launches": merge_launches,
          "launches_by_shape": {f"{n}x{L}": c for (n, L), c in batched_roots_kernel.launches_by_shape.items()}}
     if not bool((roots == roots[0]).all()) or not bool((stack.leaf == stack.leaf[:1]).all()):
         raise AssertionError(f"ring gossip: roots differ after {n - 1} rounds: {roots.tolist()}")
@@ -1912,7 +2033,8 @@ def phase_ring_gossip(base) -> dict:
         raise AssertionError(f"ring gossip: {views[0][0].shape[1]} alive entries, want {want}")
     log(f"[gossip] {n} lanes x {n - 1} ring_gossip_rounds ({m['round_ms']:.3f} ms a round with "
         f"its roots): roots and leaves equal, every lane's {want} entries and context equal; "
-        f"roots kernel launches on this path {m['launches']}")
+        f"roots kernel launches on this path {m['launches']}; merge kernel launches by the lanes' merge_into "
+        f"{merge_launches}")
     return m
 
 
@@ -5153,6 +5275,10 @@ def main() -> int:
     probe["shapes"] += path_probe_rows(name_power, by_shape, head_keys)
     if sum(row["launches"] for row in probe["shapes"]) != sum(by_shape.values()):
         raise AssertionError(f"probe launches by shape {by_shape} are not all in the timed rows")
+    merge = f.pop("merge_kernel")
+    merge["launches_by_path"] = {"fanin": f["merge_launches"], "gossip": g["merge_launches"]}
+    merge["launches"] = sum(merge["launches_by_path"].values())
+    merge["shapes"][0]["launches"] = f["merge_launches"]
     fanin_runs = [f, fp["packed_scomp"], fp["packed_topk"]]
     roots["launches"] = sum(x["launches"] for x in fanin_runs)  # the fan-in's, every layout
     roots["launches_by_path"] = {"fanin": f["launches"], "fanin_packed_scomp": fp["packed_scomp"]["launches"],
@@ -5165,14 +5291,14 @@ def main() -> int:
     for row in roots["shapes"]:
         k = f"{row['shape']['N']}x{row['shape']['L']}"
         row["launches"] = sum(x["launches_by_shape"].get(k, 0) for x in fanin_runs + [g])
-    for kern in (probe, roots):
+    for kern in (probe, roots, merge):
         loss = [(row["shape"], row["launches"], row["launches"] * (row["kernel_ms"] - row["bound_ms"]))
                 for row in kern["shapes"]]
         log(f"[kernel-loss] {kern['name']}: launches x (kernel_ms - bound_ms) by timed shape "
             f"{[(sh, n, round(x, 6)) for sh, n, x in loss]}, sum {sum(x for _, _, x in loss):.6f} ms")
     log(f"[env] total {time.perf_counter() - t_start:.3f} s")
     print(name_power, flush=True)
-    print(json.dumps({"kernels": [probe, roots]}), flush=True)
+    print(json.dumps({"kernels": [probe, roots, merge]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -33,6 +33,14 @@ No op writes into its inputs. A merge that reports ``ok=False`` is
 re-run by the host on the pre-merge state (``tier_retry_merge``), so
 each scatter goes into a fresh copy: one extra element per lane takes
 the writes that the JAX package drops (``mode="drop"``) and is cut off.
+The one exception is :func:`merge_commit`, the column fan-in's merge
+attempt (the hand-written kernel of
+:mod:`~delta_crdt_ex_tpu_torch.ops.merge_kernel` on the card, through
+the graphed entry of :mod:`~delta_crdt_ex_tpu_torch.parallel.merge_graph`):
+it writes the merged rows into the store it is given, and only where
+every lane merged, so the retry still finds the pre-merge state; copying
+the whole store for a delta of a few rows is the cost it exists to
+remove.
 Scatters with repeated indices write one value, or reduce with an
 order-free reduction (``amin``, ``amax``, integer ``scatter_add_``), so
 no result depends on the order CUDA applies them in.
@@ -58,9 +66,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from delta_crdt_ex_tpu_torch.models.binned import U32_MAX, BinnedStore
+from delta_crdt_ex_tpu_torch.models.binned import COLUMNS, U32_MAX, BinnedStore
 from delta_crdt_ex_tpu_torch.ops.apply import OP_ADD, OP_REMOVE
 from delta_crdt_ex_tpu_torch.ops.dots import MergedGids, encode_dot, merge_gid_tables
+from delta_crdt_ex_tpu_torch.ops.merge_kernel import merge_slice_kernel
 from delta_crdt_ex_tpu_torch.runtime import tracing
 from delta_crdt_ex_tpu_torch.utils.transfers import device_layout
 
@@ -1160,7 +1169,70 @@ def merge_slice(
 
     ``state`` is one store or a neighbour stack (one merge per lane, the
     slice shared, ``fanout_merge``). Never writes into its inputs, so a
-    failed merge can be re-run on the same state."""
+    failed merge can be re-run on the same state.
+
+    On a CUDA store the merge is the hand-written kernel
+    (:func:`merge_commit` with ``per_lane``, ``csrc/merge.cu``)
+    committing each lane into a copy of the store: a
+    lane that is ok is this plain op's lane bit for bit, ``n_killed``
+    included; a lane that is not ok comes back as the unchanged copy
+    (the plain op's partial state there is never read). Flags and
+    ``n_inserted`` are equal on every lane. Slice rows name distinct
+    buckets, except padding."""
     st, single = _with_lanes(state)
-    res = _merge_slice_b(st, _lane_slice(sl, st.key.shape[0]), kill_budget, max_inserts)
+    if st.device.type == "cuda":
+        x = _map_store(torch.clone, st)
+        flags, counts = result_buffers(st.key.shape[0], st.device)
+        sl = RowSlice(*(t.contiguous() for t in sl))
+        merge_commit(x, sl, kill_budget, max_inserts, flags, counts, per_lane=True)
+        res = MergeResult(x, *flags.unbind(0), *counts.unbind(0))
+    else:
+        res = _merge_slice_b(st, _lane_slice(sl, st.key.shape[0]), kill_budget, max_inserts)
     return _lane0(res) if single else res
+
+
+#: the boolean fields of a :class:`MergeResult` (the flags buffer's rows
+#: in :func:`merge_commit`) and its two counts (the counts buffer's)
+FLAGS, COUNTS = MergeResult._fields[1:-2], MergeResult._fields[-2:]
+
+
+def result_buffers(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(flags, counts)`` for merges into an ``n``-lane store: bool
+    ``[6, n]`` and int64 ``[2, n]``, zeroed."""
+    flags = torch.zeros((len(FLAGS), n), dtype=torch.bool, device=device)
+    counts = torch.zeros((len(COUNTS), n), dtype=torch.int64, device=device)
+    return flags, counts
+
+
+def merge_commit_ref(
+    x: BinnedStore, sl: RowSlice, kill_budget: int, max_inserts: int | None, flags, counts, per_lane: bool = False
+) -> None:
+    """Plain torch version of :func:`merge_commit`: ``sl`` merged into
+    ``x`` by :func:`_merge_slice_b`, the merged columns written over
+    ``x`` where ``ok`` holds (every lane's, or each lane's own with
+    ``per_lane``), ``x`` left as it was elsewhere."""
+    res = _merge_slice_b(x, _lane_slice(sl, x.key.shape[0]), kill_budget, max_inserts)
+    ok = res.ok if per_lane else res.ok.all().expand(res.ok.shape)
+    for c in COLUMNS:
+        col = getattr(x, c)
+        torch.where(ok.reshape(-1, *(1,) * (col.dim() - 1)), getattr(res.state, c), col, out=col)
+    torch.stack([getattr(res, f) for f in FLAGS], out=flags)
+    torch.stack([getattr(res, f) for f in COUNTS], out=counts)
+
+
+def merge_commit(
+    x: BinnedStore, sl: RowSlice, kill_budget: int, max_inserts: int | None, flags, counts, per_lane: bool = False
+) -> None:
+    """One merge attempt of ``sl`` into the lane-batched store ``x``,
+    committed in place where every lane is ok (each ok lane on its own
+    with ``per_lane``): the per-lane :data:`FLAGS` into ``flags`` (bool
+    ``[6, N]``), ``n_inserted`` and ``n_killed`` into ``counts`` (int64
+    ``[2, N]``; from :func:`result_buffers`). The hand-written kernel
+    for a CUDA store (it launches or raises), :func:`merge_commit_ref`
+    for a CPU store. ``sl`` is shared by every lane (``[U, S]``) or has
+    a lane axis. No host sync. The store and ``n_killed`` are the plain
+    op's where ok holds, flags and ``n_inserted`` everywhere."""
+    if x.device.type == "cpu":
+        merge_commit_ref(x, sl, kill_budget, max_inserts, flags, counts, per_lane)
+    else:
+        merge_slice_kernel(x, sl, kill_budget, max_inserts, flags, counts, per_lane)

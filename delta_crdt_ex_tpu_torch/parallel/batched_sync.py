@@ -75,7 +75,9 @@ def fanout_merge(
     """Merge one slice into N stacked neighbour states in one call
     (``batched_sync.py:58``). Each neighbour does its own gid remap and
     interval join against the shared slice; every result field has a
-    leading neighbour axis."""
+    leading neighbour axis. On a CUDA stack a neighbour whose merge is
+    not ok comes back as it was (see
+    :func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_slice`)."""
     _require_stack(stacked)
     return merge_slice(stacked, sl, kill_budget, max_inserts)
 

@@ -4,24 +4,29 @@ On a CUDA column stack, :func:`~delta_crdt_ex_tpu_torch.parallel.batched_sync.fa
 runs its tier-retry loop
 (:func:`~delta_crdt_ex_tpu_torch.models.binned_map.tier_retry_merge`,
 policy and retry counts unchanged) through a :class:`MergeGraphs`: each
-merge attempt, and each compaction, is one replay of a graph captured
-from the same torch ops the eager merge runs
-(:func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_slice`,
-:func:`~delta_crdt_ex_tpu_torch.ops.binned.compact_rows`), instead of
-every op enqueued from Python. The results are the eager path's bit for
-bit: the same ops in the same order, integer arithmetic only.
+merge attempt, and each compaction, is one replay of a captured graph
+instead of every op enqueued from Python. A merge attempt's graph holds
+a memset and the two launches of the hand-written merge kernel
+(:func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_commit`,
+``csrc/merge.cu``); a compaction's, the torch ops of
+:func:`~delta_crdt_ex_tpu_torch.ops.binned.compact_rows`. The results are
+the eager path's bit for bit (integer arithmetic only).
 
 Buffers. The entry owns the stack it returned last (X) and, for each
 slice shape, a static copy of the slice, into which each call's slice is
-copied once. A graph reads X and the static slice; it writes the
+copied once. A merge graph reads X and the static slice; it writes the
 attempt's per-lane flags and counts into two small entry-owned buffers
-and, only where every lane merged (``ok`` on the device), the merged
-columns over X; an attempt that needs a higher tier leaves X as it was,
-so the retry replays another graph on the same X. The merge's output
-columns are temporaries of the graph, in one private memory pool that
-all the entry's graphs share: no graph output lives in the pool, so any
-replay order is safe, and X plus the pool is what the eager merge holds
-(its input and its output).
+(:func:`~delta_crdt_ex_tpu_torch.ops.binned.result_buffers`) and,
+only where every lane merged (``ok`` on the device), the merged rows
+into X in place: the kernel writes the slice's rows of X and nothing
+else, and no merged column exists anywhere. The graphs share one
+private memory pool, which holds the compaction's temporaries and each
+merge graph's scratch of the slice's rows (with the kernel's per-lane
+words, zeroed at the head of every attempt, so an attempt that failed
+part way leaves nothing a later one reads). An attempt that needs a
+higher tier leaves X as it was, so the retry replays another graph on
+the same X. No graph output lives in the pool, so any replay order is
+safe.
 
 Keys: the slice's shape and dtypes, the kill budget and the insert tier
 (one graph each), and one key for the compaction; a graph is captured
@@ -34,9 +39,10 @@ the graphs and the static slices.
 The counters are plain integers on this module: :data:`captures`,
 :data:`replays` (merge attempts replayed) and :data:`eager_attempts`
 (merge attempts run eagerly: on a stack the entry did not return, and
-the first run of each graph). Under a profiler each replayed attempt is
-a ``crdt.merge.replay`` span inside its ``crdt.merge.attempt``; the
-merge body's step spans appear only on eager attempts and at capture.
+the first run of each graph). On a CUDA stack every eager attempt is
+one launch of the merge kernel, so its ``launches`` count plus
+:data:`replays` is every attempt. Under a profiler each replayed attempt
+is a ``crdt.merge.replay`` span inside its ``crdt.merge.attempt``.
 """
 
 from __future__ import annotations
@@ -50,12 +56,13 @@ import torch
 from delta_crdt_ex_tpu_torch.models.binned import COLUMNS, BinnedStore
 from delta_crdt_ex_tpu_torch.models.binned_map import tier_retry_merge
 from delta_crdt_ex_tpu_torch.ops.binned import (
+    FLAGS,  # the flags buffer's rows, in MergeResult order
     MergeResult,
     RowSlice,
-    _lane_slice,
-    _merge_slice_b,
     compact_rows,
+    merge_commit,
     merge_slice,
+    result_buffers,
 )
 from delta_crdt_ex_tpu_torch.runtime import tracing
 
@@ -67,25 +74,9 @@ replays = 0
 #: or the first run of a graph)
 eager_attempts = 0
 
-#: the boolean fields of a :class:`MergeResult` (the flags buffer's rows)
-#: and its two counts (the counts buffer's)
-FLAGS, COUNTS = MergeResult._fields[1:-2], MergeResult._fields[-2:]
-
-
-def merge_body(x: BinnedStore, sl: RowSlice, kill_budget: int, max_inserts: int | None, flags, counts) -> None:
-    """One merge attempt as its graph runs it: ``sl`` merged into the
-    lane-batched store ``x``; the per-lane :data:`FLAGS` into ``flags``
-    (bool ``[6, N]``) and ``n_inserted``, ``n_killed`` into ``counts``
-    (int64 ``[2, N]``); and where every lane is ok, the merged columns
-    written over ``x``, else ``x`` left as it was. Plain torch ops, no
-    host sync: it runs eagerly as well."""
-    res = _merge_slice_b(x, _lane_slice(sl, x.key.shape[0]), kill_budget, max_inserts)
-    ok = res.ok.all()
-    for c in COLUMNS:
-        col = getattr(x, c)
-        torch.where(ok, getattr(res.state, c), col, out=col)
-    torch.stack([getattr(res, f) for f in FLAGS], out=flags)
-    torch.stack([getattr(res, f) for f in COUNTS], out=counts)
+#: one merge attempt as its graph runs it (see
+#: :func:`~delta_crdt_ex_tpu_torch.ops.binned.merge_commit`)
+merge_body = merge_commit
 
 
 def compact_body(x: BinnedStore) -> None:
@@ -147,9 +138,7 @@ class MergeGraphs:
     def _adopt(self, state: BinnedStore) -> None:
         self._drop()
         self._x = dataclasses.replace(state)
-        n, dev = state.key.shape[0], state.device
-        self._flags = torch.empty((len(FLAGS), n), dtype=torch.bool, device=dev)
-        self._counts = torch.empty((len(COUNTS), n), dtype=torch.int64, device=dev)
+        self._flags, self._counts = result_buffers(state.key.shape[0], state.device)
 
     def _graph(self, key, body):
         """``(graph, whether this call captured it)``."""
@@ -170,7 +159,9 @@ class MergeGraphs:
             sig = tuple((tuple(t.shape), t.dtype) for t in sl)
             static = self._slices.get(sig)
             if static is None:
-                static = self._slices[sig] = RowSlice(*(torch.empty_like(t, device=self._x.device) for t in sl))
+                static = self._slices[sig] = RowSlice(
+                    *(torch.empty(t.shape, dtype=t.dtype, device=self._x.device) for t in sl)
+                )
             for dst, src in zip(static, sl):
                 dst.copy_(src)
             self._sl_static = sig, static

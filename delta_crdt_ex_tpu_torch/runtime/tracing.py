@@ -50,8 +50,9 @@ The spans:
   ``crdt.merge.insert_grid``, ``crdt.merge.insert_select``,
   ``crdt.merge.insert_scatter``, ``crdt.merge.insert_aux``,
   ``crdt.merge.kill_rows``, ``crdt.merge.kill_apply``,
-  ``crdt.merge.assemble`` (recorded where the body runs eagerly: not
-  inside a graph replay, only when its graph is captured).
+  ``crdt.merge.assemble`` (recorded where the torch body runs: on a CPU
+  store and on the packed layout; on a CUDA column store an attempt is
+  the merge kernel, ``ops/merge_kernel.py``, and has no steps).
 """
 
 from __future__ import annotations

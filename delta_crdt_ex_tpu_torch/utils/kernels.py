@@ -1,6 +1,7 @@
 """Build the port's hand-written CUDA kernels from the sources in
 ``delta_crdt_ex_tpu_torch/csrc/``: ``probe.cu`` (the probe-window point
-lookup) and ``roots.cu`` (the digest-tree roots).
+lookup), ``roots.cu`` (the digest-tree roots) and ``merge.cu`` (the
+column fan-in's merge attempt).
 
 Each source ``csrc/<name>.cu`` compiles with its own ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded
